@@ -1,0 +1,157 @@
+"""Scene flattening: builder objects -> static spec + params.
+
+Counterpart of ``pyrayt_tpu.scene.compile``.  A compiled scene splits
+into a hashable ``SceneSpec`` (primitive type codes, CSG tree shapes,
+id/material wiring; equal field by field to the JAX package's) and
+``params``, a dict of tensors: ``world`` (S, 4, 4) local-to-world
+transforms, ``prim`` (S, 6) packed primitive parameters and ``glass``
+(M, 7) dispersion rows.  The engines and the CUDA kernel read only these.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from pyrayt_tpu_torch import materials as matl
+from pyrayt_tpu_torch.core.csg import Operation
+from pyrayt_tpu_torch.core.intervals import LEAF
+from pyrayt_tpu_torch.scene.csg import CSGSurface
+from pyrayt_tpu_torch.scene.objects import ObjectGroup, TracerSurface
+
+__all__ = ["SceneSpec", "CompiledScene", "compile_scene", "LEAF", "OP_BY_NAME"]
+
+_OP_NAMES = {
+    Operation.UNION: "union",
+    Operation.INTERSECT: "intersect",
+    Operation.DIFFERENCE: "difference",
+}
+OP_BY_NAME = {name: op for op, name in _OP_NAMES.items()}
+
+_PACKED_TYPES = (
+    matl.BasicRefractor,
+    matl.SellmeierRefractor,
+    matl._AbsorbingMaterial,
+    matl._ReflectingMaterial,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneSpec:
+    """Static scene structure (hashable)."""
+
+    leaf_types: Tuple[int, ...]  # primitive type code per leaf slot
+    leaf_ids: Tuple[int, ...]  # public surface id per leaf slot
+    leaf_normal_scale: Tuple[int, ...]  # +1 / -1 per leaf slot
+    leaf_mat_slot: Tuple[int, ...]  # material slot per leaf
+    mat_kinds: Tuple[int, ...]  # KIND_* per material slot
+    mat_packed: Tuple[bool, ...]  # True -> engines use the packed glass row
+    trees: Tuple[Any, ...]  # per top-level component: nested tuples
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.leaf_types)
+
+
+@dataclasses.dataclass
+class CompiledScene:
+    spec: SceneSpec
+    params: Dict[str, torch.Tensor]
+    materials: Tuple[matl.TracableMaterial, ...]  # one per material slot
+
+
+def _flatten_components(components):
+    flat = []
+    for comp in components:
+        if isinstance(comp, ObjectGroup):
+            flat.extend(_flatten_components(comp.data))
+        else:
+            flat.append(comp)
+    return flat
+
+
+def compile_scene(
+    components,
+    require_materials: bool = True,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+) -> CompiledScene:
+    """Flatten a list of Intersectables into a CompiledScene whose params
+    are ``dtype`` tensors on ``device``.
+
+    ``require_materials=False`` maps material-less surfaces to the absorber
+    so geometry-only scenes still compile.
+    """
+    components = _flatten_components(
+        components if hasattr(components, "__iter__") else (components,)
+    )
+
+    leaf_types = []
+    leaf_ids = []
+    leaf_normal_scale = []
+    leaf_mat_slot = []
+    worlds = []
+    prims = []
+
+    materials = []
+    mat_slot_of = {}
+
+    def _material_slot(material) -> int:
+        if material is None:
+            # material-less surfaces absorb (e.g. the subtracted opening of
+            # aperture())
+            material = matl.absorber
+        elif not isinstance(material, matl.TracableMaterial):
+            if require_materials:
+                raise TypeError(
+                    f"material {material!r} is not a TracableMaterial; the "
+                    "engines need a pure_trace implementation"
+                )
+            material = matl.absorber
+        # built-in materials compare by value, so rebuilt but identical
+        # glasses share a slot
+        if material not in mat_slot_of:
+            mat_slot_of[material] = len(materials)
+            materials.append(material)
+        return mat_slot_of[material]
+
+    def _walk(obj):
+        if isinstance(obj, CSGSurface):
+            return (_OP_NAMES[obj.operation], _walk(obj.l_child), _walk(obj.r_child))
+        if isinstance(obj, TracerSurface):
+            slot = len(leaf_types)
+            leaf_types.append(obj.prim_type)
+            leaf_ids.append(obj.get_id())
+            leaf_normal_scale.append(obj._normal_scale)
+            leaf_mat_slot.append(_material_slot(obj.material))
+            worlds.append(obj.get_world_transform())
+            prims.append(obj.prim_params)
+            return (LEAF, slot)
+        raise TypeError(f"cannot compile component of type {type(obj)!r}")
+
+    trees = tuple(_walk(comp) for comp in components)
+
+    spec = SceneSpec(
+        leaf_types=tuple(leaf_types),
+        leaf_ids=tuple(leaf_ids),
+        leaf_normal_scale=tuple(leaf_normal_scale),
+        leaf_mat_slot=tuple(leaf_mat_slot),
+        mat_kinds=tuple(m.kind for m in materials),
+        mat_packed=tuple(type(m) in _PACKED_TYPES for m in materials),
+        trees=trees,
+    )
+    world = np.stack(worlds) if worlds else np.zeros((0, 4, 4))
+    prim = np.stack(prims) if prims else np.zeros((0, 6))
+    glass = (
+        np.stack([m.glass_coeffs() for m in materials])
+        if materials
+        else np.zeros((0, matl.N_GLASS_COEFFS))
+    )
+    params = {
+        name: torch.as_tensor(value, dtype=dtype, device=device)
+        for name, value in (("world", world), ("prim", prim), ("glass", glass))
+    }
+    return CompiledScene(spec=spec, params=params, materials=tuple(materials))

@@ -1,0 +1,348 @@
+"""Scene-graph builder objects.
+
+Counterpart of ``pyrayt_tpu.scene.objects``: world objects with the same
+movement/chaining API.  These are *builders*: they hold 4x4 NumPy
+transforms and packed primitive parameters and compile into the flat
+scene representation the trace engines consume (scene/compile.py).
+
+Object identity: every object draws a monotonically increasing id from a
+global counter; that id is what appears in the results frame's
+``surface`` column.  Wrap a rebuild in ``fresh_ids()`` so ids repeat.
+"""
+
+from __future__ import annotations
+
+import abc
+import contextlib
+import copy
+import itertools
+import math
+
+import numpy as np
+import torch
+
+from pyrayt_tpu_torch.core import primitives as prim
+from pyrayt_tpu_torch.core.operations import transform_rays
+from pyrayt_tpu_torch.scene._backend import xp_for
+
+__all__ = [
+    "CountedObject",
+    "fresh_ids",
+    "WorldObject",
+    "ObjectGroup",
+    "Intersectable",
+    "TracerSurface",
+    "bounding_box_spans",
+]
+
+
+class CountedObject:
+    """Global monotonically-increasing object ids."""
+
+    _ids = itertools.count(0)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._id = next(CountedObject._ids)
+
+    def get_id(self) -> int:
+        return self._id
+
+
+@contextlib.contextmanager
+def fresh_ids(start: int = 0):
+    """Reset the global id counter inside the context, restoring it after,
+    so a rebuilt scene emits the same ids."""
+    saved = CountedObject._ids
+    CountedObject._ids = itertools.count(start)
+    try:
+        yield
+    finally:
+        CountedObject._ids = saved
+
+
+def _plain(*values):
+    """Refuse traced values (see scene/_backend.py) and return floats."""
+    xp_for(*values)
+    return [float(v) for v in values]
+
+
+class WorldObject(CountedObject):
+    """An object in 3D space with chainable move/scale/rotate operations
+    (deg/rad units, negative scales prohibited)."""
+
+    @staticmethod
+    def _sin_cos(angle, units="deg"):
+        if units == "deg":
+            scale = math.pi / 180.0
+        elif units == "rad":
+            scale = 1.0
+        else:
+            raise ValueError(f"{units} is not a valid option for angle units")
+        (angle,) = _plain(angle)
+        return math.sin(angle * scale), math.cos(angle * scale)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._obj_origin = np.array([0.0, 0.0, 0.0, 1.0])
+        self._obj_direction = np.array([0.0, 0.0, 1.0, 0.0])
+        self._world_coordinate_transform = np.identity(4)
+        self._object_coordinate_transform = np.identity(4)
+        self._world_origin = self._obj_origin
+        self._world_direction = self._obj_direction
+        # callbacks fired whenever the world transform changes
+        self.var_watchlist = [self._world_matrix_update_handler]
+
+    # -- transform bookkeeping ------------------------------------------------
+
+    def _world_matrix_update_handler(self):
+        tx = self._world_coordinate_transform
+        self._world_origin = tx @ self._obj_origin
+        world_dir = tx @ self._obj_direction
+        norm = np.linalg.norm(world_dir)
+        if float(norm) < 1e-7:
+            raise ValueError(f"Measured Norm of World Vector below tolerance: {norm}")
+        self._world_direction = world_dir / norm
+        self._object_coordinate_transform = np.linalg.inv(tx)
+
+    def _append_world_transform(self, new_transform):
+        new_transform = np.asarray(new_transform, dtype=float)
+        self._world_coordinate_transform = new_transform @ self._world_coordinate_transform
+        for fn in self.var_watchlist:
+            fn()
+
+    # -- getters --------------------------------------------------------------
+
+    def get_position(self):
+        return self._world_origin
+
+    def get_orientation(self):
+        return self._world_direction
+
+    def get_quaternion(self):
+        from scipy.spatial import transform as scipy_transform
+
+        r = scipy_transform.Rotation.from_matrix(
+            self._world_coordinate_transform[:-1, :-1]
+        )
+        return r.as_quat()
+
+    def get_world_transform(self):
+        return copy.copy(self._world_coordinate_transform)
+
+    def get_object_transform(self):
+        return copy.copy(self._object_coordinate_transform)
+
+    def to_object_coordinates(self, coordinates):
+        return self._object_coordinate_transform @ np.asarray(coordinates)
+
+    def to_world_coordinates(self, coordinates):
+        return self._world_coordinate_transform @ np.asarray(coordinates)
+
+    # -- movement -------------------------------------------------------------
+
+    def move(self, x=0, y=0, z=0):
+        tx = np.identity(4)
+        tx[:-1, -1] = _plain(x, y, z)
+        self._append_world_transform(tx)
+        return self
+
+    def move_x(self, movement):
+        return self.move(x=movement)
+
+    def move_y(self, movement):
+        return self.move(y=movement)
+
+    def move_z(self, movement):
+        return self.move(z=movement)
+
+    def scale(self, x=1, y=1, z=1):
+        x, y, z = _plain(x, y, z)
+        if min(x, y, z) < 0:
+            raise ValueError("Negative values for scale operations are prohibited")
+        self._append_world_transform(np.diag((x, y, z, 1.0)))
+        return self
+
+    def scale_x(self, scale_val):
+        return self.scale(x=scale_val)
+
+    def scale_y(self, scale_val):
+        return self.scale(y=scale_val)
+
+    def scale_z(self, scale_val):
+        return self.scale(z=scale_val)
+
+    def scale_all(self, scale_val):
+        return self.scale(scale_val, scale_val, scale_val)
+
+    @staticmethod
+    def _rotation_matrix(axes, sin_a, cos_a):
+        (i, j) = axes
+        tx = np.identity(4)
+        tx[i, i] = cos_a
+        tx[j, j] = cos_a
+        tx[i, j] = -sin_a
+        tx[j, i] = sin_a
+        return tx
+
+    def rotate_x(self, angle, units="deg"):
+        sin_a, cos_a = self._sin_cos(angle, units)
+        self._append_world_transform(self._rotation_matrix((1, 2), sin_a, cos_a))
+        return self
+
+    def rotate_y(self, angle, units="deg"):
+        sin_a, cos_a = self._sin_cos(angle, units)
+        self._append_world_transform(self._rotation_matrix((2, 0), sin_a, cos_a))
+        return self
+
+    def rotate_z(self, angle, units="deg"):
+        sin_a, cos_a = self._sin_cos(angle, units)
+        self._append_world_transform(self._rotation_matrix((0, 1), sin_a, cos_a))
+        return self
+
+    def transform(self, transform_matrix):
+        xp_for(transform_matrix)
+        if isinstance(transform_matrix, torch.Tensor):
+            transform_matrix = transform_matrix.cpu().numpy()
+        self._append_world_transform(transform_matrix)
+        return self
+
+
+class ObjectGroup(WorldObject):
+    """Rigid assembly: transforms applied to the group propagate to members."""
+
+    def __init__(self, initlist=None, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.data = list(initlist) if initlist is not None else []
+
+    def __iter__(self):
+        return iter(self.data)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, item):
+        return self.data[item]
+
+    def append(self, item):
+        self.data.append(item)
+
+    def _append_world_transform(self, new_transform):
+        super()._append_world_transform(new_transform)
+        for surface in self.data:
+            surface.transform(new_transform)
+
+
+def bounding_box_spans(point_set):
+    """(3, 2) per-axis (min, max) spans of a homogeneous point set (4, k)."""
+    point_set = np.asarray(point_set)
+    return np.stack((np.min(point_set[:3], axis=1), np.max(point_set[:3], axis=1)), axis=1)
+
+
+class Intersectable(WorldObject, abc.ABC):
+    """Base for anything traceable."""
+
+    _normal_scale = 1
+
+    @abc.abstractmethod
+    def intersect(self, rays):
+        """Eager intersection; returns ``(hits (m, n), surface_ids (m, n))``."""
+
+    @property
+    def bounding_box(self):
+        """(3, 2) world-space AABB spans (min, max per axis)."""
+        return self._aobb_spans
+
+    @property
+    def bounding_volume(self):
+        return self._aobb_spans
+
+    def attach_to(self, parent_object: WorldObject) -> None:
+        self._parent = parent_object
+        self.var_watchlist += parent_object.var_watchlist
+
+    def invert_normals(self):
+        self._normal_scale = -1
+
+    def reset_normals(self):
+        self._normal_scale = 1
+
+    @property
+    def surface_ids(self) -> tuple:
+        return ((self.get_id(), self),)
+
+
+def _corners_to_cube_points(spans):
+    """8 homogeneous corner points of a (3, 2) span box, shape (4, 8)."""
+    spans = np.asarray(spans, dtype=float)
+    corners = [
+        (spans[0, ix], spans[1, iy], spans[2, iz], 1.0)
+        for ix in range(2)
+        for iy in range(2)
+        for iz in range(2)
+    ]
+    return np.asarray(corners).T
+
+
+class TracerSurface(Intersectable, abc.ABC):
+    """Binds a primitive type code + packed parameters + material + transform."""
+
+    prim_type: int  # set by subclasses
+
+    def __init__(self, params, bounding_spans, material=None, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        params = np.asarray(params, dtype=float).reshape(-1)
+        packed = np.zeros(prim.PARAM_WIDTH)
+        packed[: params.shape[0]] = params
+        self._prim_params = packed
+        self.material = material
+        self._local_bounding_points = _corners_to_cube_points(bounding_spans)
+        self._boundary_box_update_fn()
+        self.var_watchlist.append(self._boundary_box_update_fn)
+
+    def _boundary_box_update_fn(self):
+        self._aobb_spans = bounding_box_spans(self.bounding_points)
+
+    @property
+    def bounding_points(self):
+        return self._world_coordinate_transform @ self._local_bounding_points
+
+    @property
+    def prim_params(self):
+        return self._prim_params
+
+    def intersect(self, rays):
+        """Eager single-surface intersection of ``(2, 4, n)`` (or ``(2, 4)``)
+        world rays; returns ``(hits (2, n), ids (2, n))``."""
+        if rays.ndim == 2:
+            rays = rays[..., None]
+        obj_tx = torch.as_tensor(
+            self._object_coordinate_transform, dtype=rays.dtype, device=rays.device
+        )
+        local_rays = torch.einsum("ij,rjn->rin", obj_tx, rays)
+        params = torch.as_tensor(self._prim_params, dtype=rays.dtype, device=rays.device)
+        hits = prim.leaf_intersect(self.prim_type, local_rays, params)
+        hits = torch.stack((torch.minimum(hits[0], hits[1]), torch.maximum(hits[0], hits[1])))
+        ids = torch.full(hits.shape, self.get_id(), dtype=torch.int64, device=rays.device)
+        return hits, ids
+
+    def get_world_normals(self, positions):
+        """World-space unit normals at (assumed on-surface) ``(4, n)`` or
+        ``(4,)`` positions: inverse-transpose transform, w zeroed,
+        renormalized, scaled by the inversion flag."""
+        single = positions.ndim == 1
+        if single:
+            positions = positions[:, None]
+        obj_tx = torch.as_tensor(
+            self._object_coordinate_transform, dtype=positions.dtype, device=positions.device
+        )
+        params = torch.as_tensor(
+            self._prim_params, dtype=positions.dtype, device=positions.device
+        )
+        local_points = transform_rays(obj_tx, positions)
+        local_normals = prim.leaf_normal(self.prim_type, local_points, params)
+        world_normals = transform_rays(obj_tx.T, local_normals)
+        world_normals = torch.cat((world_normals[:3], torch.zeros_like(world_normals[3:])))
+        world_normals = world_normals / torch.linalg.norm(world_normals, dim=0)
+        world_normals = world_normals * self._normal_scale
+        return world_normals[:, 0] if single else world_normals

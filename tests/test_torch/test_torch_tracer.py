@@ -1,0 +1,115 @@
+"""The port's plain engine and RayTracer against the JAX package (float64),
+and the port's import isolation."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import pyrayt_tpu as j_pyrayt
+import pyrayt_tpu_torch as t_pyrayt
+from pyrayt_tpu.config import TraceConfig as JConfig
+from pyrayt_tpu.tracer import engine as j_engine
+from pyrayt_tpu_torch.config import TraceConfig
+from pyrayt_tpu_torch.tracer import engine
+from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
+
+TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("fixed_loop", [True, False])
+@pytest.mark.parametrize("name", ["condenser", "all_primitives", "prism_tir", "mirrors", "union"])
+def test_plain_engine_matches_jax_engine(twins, name, fixed_loop):
+    """Same loop semantics as the JAX engine: every record row (masked or
+    not), every mask and the final rays agree."""
+    j_scene, t_scene, j_rays, t_rays, gens = twins.inputs(name)
+    j_res = j_engine.build_trace_fn(
+        j_scene.spec, j_scene.materials, JConfig(generation_limit=gens, fixed_loop=fixed_loop)
+    )(j_scene.params, j_rays)
+    res = engine.build_trace_fn(
+        t_scene.spec, t_scene.materials, TraceConfig(generation_limit=gens, fixed_loop=fixed_loop)
+    )(t_scene.params, t_rays)
+    np.testing.assert_array_equal(res.record_mask.numpy(), np.asarray(j_res.record_mask))
+    np.testing.assert_allclose(res.records.numpy(), np.asarray(j_res.records), **TOL)
+    assert int(res.generations_run) == int(j_res.generations_run)
+    for field in ("positions", "directions", "generation", "intensity", "wavelength", "index"):
+        np.testing.assert_allclose(
+            getattr(res.final_rays, field).numpy(),
+            np.asarray(getattr(j_res.final_rays, field)),
+            err_msg=field,
+            **TOL,
+        )
+
+
+def _collimator(pkg):
+    comp = pkg.components
+    lens = comp.biconvex_lens(2, 2, 0.25, aperture=1)
+    focus = pkg.lensmakers_equation(2, -2, 1.5, 0.25)
+    source = comp.ConeOfRays(cone_angle=6).move_x(-focus)
+    baffle = comp.baffle((1, 1)).move_x(1)
+    return source, [lens, baffle]
+
+
+def test_ray_tracer_collimator_matches_jax_frame():
+    with j_pyrayt.scene.fresh_ids():
+        j_source, j_parts = _collimator(j_pyrayt)
+        j_frame = j_pyrayt.RayTracer(
+            j_source, j_parts, rays_per_source=50, generation_limit=100
+        ).trace()
+    with t_pyrayt.scene.fresh_ids():
+        t_source, t_parts = _collimator(t_pyrayt)
+        tracer = t_pyrayt.RayTracer(
+            t_source, t_parts, rays_per_source=50, generation_limit=100, dtype=torch.float64
+        )
+        frame = tracer.trace()
+    assert len(frame) == len(j_frame) == 150
+    assert list(frame.columns) == list(j_frame.columns)
+    assert (frame.dtypes == np.float32).all()
+    np.testing.assert_allclose(frame.to_numpy(), j_frame.to_numpy(), rtol=1e-6, atol=1e-6)
+    assert np.allclose(frame[frame.generation == 2]["x1"], 1.0)
+    tracer.calculate_source_ids()
+    assert (tracer.get_results()["source_id"] == 0).all()
+
+
+def test_ray_tracer_api():
+    source, parts = _collimator(t_pyrayt)
+    second = t_pyrayt.components.LineOfRays(0.2).move_x(-1.0)
+    tracer = t_pyrayt.RayTracer([source, second], parts, rays_per_source=8, generation_limit=4)
+    assert tracer.get_config().generation_limit == 4
+    result = tracer.trace_device()
+    assert result.records.dtype == torch.float32  # the production dtype
+    assert result.records.shape == (4, 15, 16)
+    np.testing.assert_array_equal(result.final_rays.id.numpy(), np.arange(16))
+    fn, params, rays = tracer.trace_fn()
+    again = fn(params, rays)
+    torch.testing.assert_close(again.records, result.records)
+    compact = records_to_dataframe(result.records, result.record_mask)
+    naive = records_to_dataframe(result.records, result.record_mask, compact=False)
+    np.testing.assert_array_equal(compact.to_numpy(), naive.to_numpy())
+    with pytest.raises(NotImplementedError, match="render"):
+        tracer.show()
+    tracer.set_config(TraceConfig(use_fused=True))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tracer.trace()
+
+
+def test_pin_restores_poses():
+    lens = t_pyrayt.components.thick_lens(1.0, -1.0, 0.25, aperture=0.5)
+    start = lens.get_world_transform()
+    with t_pyrayt.pin(lens):
+        lens.move_x(0.3).rotate_z(10)
+        assert not np.allclose(lens.get_world_transform(), start)
+    np.testing.assert_allclose(lens.get_world_transform(), start, atol=1e-12)
+
+
+def test_import_does_not_load_jax():
+    code = (
+        "import sys, pyrayt_tpu_torch, pyrayt_tpu_torch.ops.fused_trace, "
+        "pyrayt_tpu_torch.interop\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pyrayt_tpu.'))"
+        " or m == 'pyrayt_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
