@@ -21,9 +21,11 @@ import numpy as np
 import torch
 
 import pyrayt_tpu_torch.materials as matl
-from pyrayt_tpu_torch.core.operations import transform_rays
+from pyrayt_tpu_torch.config import default_device
+from pyrayt_tpu_torch.core.operations import safe_sqrt, transform_rays
 from pyrayt_tpu_torch.scene import csg
-from pyrayt_tpu_torch.scene.objects import WorldObject, _plain
+from pyrayt_tpu_torch.scene._backend import is_traced, plain
+from pyrayt_tpu_torch.scene.objects import WorldObject
 from pyrayt_tpu_torch.scene.surfaces import Cuboid, Cylinder, Paraboloid, Sphere, XYPlane
 from pyrayt_tpu_torch.tracer.rayset import RaySet
 
@@ -93,19 +95,34 @@ def _create_aperture(aperture: Union[float, tuple], thickness):
 
 def _surface_sign(r, override=None, name="r"):
     """Static classification of a lens surface radius: +1, -1, or 0 (planar).
-    ``override`` states it explicitly."""
+
+    The per-surface CSG choice (intersect vs difference) is scene
+    structure, so it must be known when the scene is compiled.  Concrete
+    radii carry their own sign; traced radii (tensors that require grad)
+    must state it via ``r1_sign``/``r2_sign``, and the optimizer then
+    explores magnitudes within that fixed convexity.
+    """
     if override is not None:
         if override not in (1, -1, 0):
             raise ValueError(f"{name}_sign must be +1, -1, or 0, got {override!r}")
         return override
-    (r,) = _plain(r)
+    r = plain(r)
+    if is_traced(r):
+        raise ValueError(
+            f"{name} is a traced value; its sign selects the lens's CSG "
+            f"structure, which must be static under jit/grad.  Pass "
+            f"{name}_sign=+1 (curving toward +Z/-X) or {name}_sign=-1."
+        )
+    r = float(r)
     if not np.isfinite(r):
         return 0
     return 1 if r > 0 else -1
 
 
 def _lens_full_thickness(r1, r2, thickness, aperture, s1=None, s2=None) -> Tuple[float, float]:
-    """Sag-extended aperture thickness + center shift for a thick lens."""
+    """Sag-extended aperture thickness + center shift for a thick lens.
+    ``s1``/``s2`` are the static surface signs from :func:`_surface_sign`
+    (inferred when omitted); the sag math itself takes traced values."""
     if s1 is None:
         s1 = _surface_sign(r1, name="r1")
     if s2 is None:
@@ -116,6 +133,11 @@ def _lens_full_thickness(r1, r2, thickness, aperture, s1=None, s2=None) -> Tuple
         max_height = np.linalg.norm(aperture) / 2
 
     def _sag(r):
+        # aperture-edge sag of a spherical cap; safe_sqrt keeps the backward
+        # pass finite as |r| approaches the semi-aperture
+        r = plain(r)
+        if is_traced(r):
+            return torch.abs(r) - safe_sqrt(r * r - max_height**2)
         return abs(r) - np.sqrt(max(r * r - max_height**2, 0.0))
 
     left_thickness = thickness / 2
@@ -215,8 +237,15 @@ def spherical_mirror(radius: float, thickness: float, **kwargs):
     else:
         dl = aperture_arg / 2
 
-    r_abs = abs(radius)
-    aperture_front_thickness = r_abs - np.sqrt(radius**2 - (l + dl) ** 2)
+    radius = plain(radius)
+    if is_traced(radius, plain(thickness)):
+        r_abs = torch.abs(radius) if is_traced(radius) else abs(radius)
+        aperture_front_thickness = r_abs - safe_sqrt(
+            torch.as_tensor(radius * radius - (l + dl) ** 2)
+        )
+    else:
+        r_abs = abs(radius)
+        aperture_front_thickness = r_abs - np.sqrt(radius**2 - (l + dl) ** 2)
     total_thickness = aperture_front_thickness + thickness
 
     aperture_solid = _create_aperture(aperture_arg, thickness + aperture_front_thickness)
@@ -373,8 +402,10 @@ class Source(WorldObject, abc.ABC):
         self._wavelength = wavelength
 
     def generate_rays(self, n_rays: int, device=None, dtype: torch.dtype = torch.float32) -> RaySet:
-        """Generate ``n_rays`` as ``dtype`` tensors on ``device``,
+        """Generate ``n_rays`` as ``dtype`` tensors on ``device`` (the CUDA
+        card when None; pass ``device="cpu"`` for the CPU),
         world-transformed with renormalized directions."""
+        device = default_device(device)
         ray_set = self._local_ray_generation(n_rays, device, dtype)
         tx = torch.as_tensor(self._world_coordinate_transform, dtype=dtype, device=device)
         positions = transform_rays(tx, ray_set.positions)

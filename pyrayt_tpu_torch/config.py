@@ -1,7 +1,8 @@
 """Trace configuration (counterpart of ``pyrayt_tpu.config``).
 
 One frozen, hashable dataclass threaded through the engines; the fields
-are those of the JAX package.
+are those of the JAX package.  ``default_device`` is the port's device
+rule for its entry points: the CUDA card unless the caller names a device.
 """
 
 from __future__ import annotations
@@ -9,7 +10,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["TraceConfig"]
+import torch
+
+__all__ = ["TraceConfig", "default_device"]
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card.  Raises
+    when the card is meant but absent: the port never falls back to the
+    CPU unless the caller asks for it with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "pyrayt_tpu_torch runs on the CUDA device by default and none is available; "
+            'pass device="cpu" to run the plain engine on the CPU'
+        )
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +50,8 @@ class TraceConfig:
     #: True = the kernel or raise (also for CPU tensors); False = always
     #: the plain engine
     use_fused: Optional[bool] = None
-    #: rematerialize the generation step under reverse mode; accepted for
-    #: the JAX package's signature and used by the gradient slice
+    #: plain engine under autograd: recompute each generation step in the
+    #: backward pass (torch.utils.checkpoint) instead of saving it
     remat: bool = False
     #: wide-scene backward selection; accepted for the JAX package's
     #: signature and used by the wide slice

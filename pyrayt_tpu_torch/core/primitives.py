@@ -15,7 +15,7 @@ import torch
 
 from pyrayt_tpu_torch.core.operations import (
     INF,
-    _norm_rows,
+    _sum_rows,
     binomial_root,
     element_wise_dot,
     isclose,
@@ -117,8 +117,11 @@ def _zero_w(points):
 
 
 def _unit(normals):
-    norm = _norm_rows(normals)
-    return normals / torch.where(norm == 0, 1.0, norm)
+    # the guard sits on the sqrt argument: d sqrt(s)/ds is infinite at
+    # s = 0, and a zero cotangent times inf is NaN under autograd (a
+    # cylinder leaf's normal at an on-axis point the ray never hit)
+    sq = _sum_rows(normals * normals)
+    return normals / torch.sqrt(torch.where(sq == 0, 1.0, sq))
 
 
 def sphere_normal(points, radius):

@@ -52,13 +52,30 @@ N_GLASS_COEFFS = 7
 
 
 def index_from_coeffs(coeffs, wavelength):
-    """Refractive index from a packed ``[A, b1..b3, c1..c3]`` row."""
+    """Refractive index from a packed ``[A, b1..b3, c1..c3]`` row.
+
+    Each Sellmeier denominator is guarded at its pole (``wl^2 == c`` gives
+    1, as the CUDA kernels do): no real trace evaluates there, but an
+    unguarded 0/0 of a constant-index row (``c = 0``) at a zero wavelength
+    would emit a NaN whose gradient poisons the summed glass cotangent."""
     wl2 = wavelength**2
     n2 = coeffs[0]
     for i in range(3):
         b, c = coeffs[1 + i], coeffs[4 + i]
-        n2 = n2 + b * wl2 / (wl2 - c)
+        den = wl2 - c
+        n2 = n2 + b * wl2 / torch.where(den == 0, 1.0, den)
     return torch.sqrt(n2)
+
+
+def _coeff_row(values):
+    """A packed glass row: a tensor when any value requires grad."""
+    traced = [v for v in values if isinstance(v, torch.Tensor) and v.requires_grad]
+    if traced:
+        ref = traced[0]
+        return torch.stack(
+            [torch.as_tensor(v, dtype=ref.dtype, device=ref.device).reshape(()) for v in values]
+        )
+    return np.asarray([float(v) for v in values], dtype=float)
 
 
 def _sqrt(x):
@@ -89,8 +106,9 @@ class TracableMaterial(abc.ABC):
     def pure_trace(self, directions, normals, wavelength, index, intensity):
         """Functional form: returns (new_directions, new_index, new_intensity)."""
 
-    def glass_coeffs(self) -> np.ndarray:
-        """Packed dispersion row for the scene params (zeros if N/A)."""
+    def glass_coeffs(self):
+        """Packed dispersion row for the scene params (zeros if N/A); a
+        tensor when a coefficient requires grad."""
         return np.zeros(N_GLASS_COEFFS)
 
 
@@ -207,10 +225,9 @@ class BasicRefractor(_ValueIdentity, Glass):
             return np.asarray(self._refractive_index, dtype=float)
         return np.full(wavelength.shape, self._refractive_index, dtype=float)
 
-    def glass_coeffs(self) -> np.ndarray:
-        row = np.zeros(N_GLASS_COEFFS)
-        row[0] = float(self._refractive_index) ** 2
-        return row
+    def glass_coeffs(self):
+        n = self._refractive_index
+        return _coeff_row([n * n] + [0.0] * (N_GLASS_COEFFS - 1))
 
 
 class SellmeierRefractor(_ValueIdentity, Glass):
@@ -245,10 +262,8 @@ class SellmeierRefractor(_ValueIdentity, Glass):
             + (self.b3 * wl2) / (wl2 - self.c3)
         )
 
-    def glass_coeffs(self) -> np.ndarray:
-        return np.asarray(
-            [1.0, self.b1, self.b2, self.b3, self.c1, self.c2, self.c3], dtype=float
-        )
+    def glass_coeffs(self):
+        return _coeff_row([1.0, self.b1, self.b2, self.b3, self.c1, self.c2, self.c3])
 
 
 absorber = _AbsorbingMaterial()

@@ -64,6 +64,7 @@ __all__ = [
     "pick_fused",
     "scene_program",
     "build_kernels",
+    "KERNEL_SOURCES",
     "fused_trace",
     "fused_trace_plain",
     "kernel_inputs",
@@ -80,7 +81,10 @@ MAX_NET_ROWS = 16
 # scene-program opcodes; keep equal to the Opcode enum in csrc/fused_trace.cu
 IV_LOAD, IV_AND, IV_SUB, IV_FOLD, NET_PUSH, NET_COMBINE, NET_FOLD = range(7)
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_trace.cu"
+_CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+# one shared library per kernel source; every source includes the header
+KERNEL_SOURCES = ("fused_trace.cu", "fused_grad.cu")
+_HEADERS = ("trace_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
@@ -96,12 +100,16 @@ def supports_fused(spec: SceneSpec) -> bool:
 
 
 def pick_fused(spec: SceneSpec, config: TraceConfig, device) -> bool:
-    """The kernel-vs-plain dispatch rule of ``trace_rays``.
+    """The kernel-vs-plain dispatch rule of ``trace_rays`` and
+    ``analysis.build_objective``.
 
-    ``use_fused=None`` picks the kernel for CUDA tensors when the scene is
-    supported; ``True`` demands it and raises for an unsupported scene or
-    for tensors that are not on a CUDA device; ``False`` never picks it.
+    ``use_fused=None`` picks the kernels for CUDA tensors when the scene is
+    supported; ``True`` demands them and raises for an unsupported scene or
+    for tensors that are not on a CUDA device; ``False`` never picks them.
     Scenes past 32 leaves raise in every mode (wide engine not ported).
+    The backward kernels (K3/K4) cover every scene the forward kernel
+    covers, so one rule serves the trace and the gradient (the TPU rule's
+    VMEM budgets have no counterpart here).
     """
     engine.check_narrow(spec)
     device = torch.device(device)
@@ -224,17 +232,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-@lru_cache(maxsize=None)
-def build_kernels():
-    """Compile ``csrc/fused_trace.cu`` for sm_90a into ``build/torch_kernels``
-    (once per source version) and return ``(path, seconds, compiler log)``.
-    Raises if the build fails."""
-    source = _CSRC.read_bytes()
-    digest = hashlib.sha256(source).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = _BUILD_DIR / f"libpyrayt_fused_trace_{digest}.so"
+def _build_one(name: str, digest: str):
+    """Start nvcc on one source; returns ``(lib_path, process or None, tmp)``."""
+    lib_path = _BUILD_DIR / f"libpyrayt_{Path(name).stem}_{digest}.so"
     if lib_path.exists():
-        return str(lib_path), 0.0, "cached"
+        return lib_path, None, None
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = [
@@ -242,21 +244,48 @@ def build_kernels():
         "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
         "-Xptxas", "-v",
-        "-o", tmp, str(_CSRC),
+        "-o", tmp, str(_CSRC_DIR / name),
     ]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return lib_path, proc, tmp
+
+
+@lru_cache(maxsize=None)
+def build_kernels():
+    """Compile every source of ``KERNEL_SOURCES`` for sm_90a into
+    ``build/torch_kernels`` (once per version of the sources and the shared
+    header), one nvcc process per source, all started together.  Returns
+    ``{source stem: (library path, seconds, compiler log)}``; raises if a
+    build fails."""
+    header = b"".join((_CSRC_DIR / h).read_bytes() for h in _HEADERS)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return str(lib_path), seconds, proc.stdout + proc.stderr
+    started = {}
+    for name in KERNEL_SOURCES:
+        digest = hashlib.sha256(header + (_CSRC_DIR / name).read_bytes()).hexdigest()[:16]
+        started[name] = _build_one(name, digest)
+    built = {}
+    failures = []
+    for name, (lib_path, proc, tmp) in started.items():
+        if proc is None:
+            built[Path(name).stem] = (str(lib_path), 0.0, "cached")
+            continue
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib_path)
+        built[Path(name).stem] = (str(lib_path), seconds, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return built
 
 
 @lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build_kernels()[0])
+    lib = ctypes.CDLL(build_kernels()["fused_trace"][0])
     args = (
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]  # state, n, generations
         + [ctypes.c_void_p] * 4  # obj_tx, prim, glass, program
@@ -275,7 +304,7 @@ def _library():
 
 
 @lru_cache(maxsize=64)
-def _device_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
+def device_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(scene_program(spec), device=device)
 
 
@@ -284,7 +313,7 @@ def _device_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(spec, state, obj_tx, prim, glass):
+def check_inputs(spec, state, obj_tx, prim, glass):
     tensors = {"state": state, "obj_tx": obj_tx, "prim": prim, "glass": glass}
     for name, t in tensors.items():
         if t.device != state.device or t.dtype != state.dtype:
@@ -319,8 +348,8 @@ def fused_trace(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass
         return fused_trace_plain(spec, config, state, obj_tx, prim, glass)
     if state.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
-    _check_inputs(spec, state, obj_tx, prim, glass)
-    program = _device_program(spec, state.device)
+    check_inputs(spec, state, obj_tx, prim, glass)
+    program = device_program(spec, state.device)
     n = state.shape[1]
     g = config.generation_limit
     records = torch.empty((g, engine.N_RECORD_COLS, n), dtype=state.dtype, device=state.device)
@@ -353,7 +382,7 @@ def fused_trace(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass
 fused_trace.launches = 0
 
 
-def _rays_from_state(state) -> RaySet:
+def rays_from_state(state) -> RaySet:
     return RaySet(
         positions=state[0:4],
         directions=state[4:8],
@@ -371,7 +400,7 @@ def fused_trace_plain(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim,
     the plain engine's generation step."""
     if not supports_fused(spec):
         raise ValueError("scene has non-packed materials or no leaves; use the plain engine")
-    _check_inputs(spec, state, obj_tx, prim, glass)
+    check_inputs(spec, state, obj_tx, prim, glass)
     n = state.shape[1]
     g_limit = config.generation_limit
     tables = {"obj_tx": obj_tx.reshape(-1, 4, 4), "prim": prim, "glass": glass}
@@ -379,7 +408,7 @@ def fused_trace_plain(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim,
         (g_limit, engine.N_RECORD_COLS, n), dtype=state.dtype, device=state.device
     )
     masks = torch.zeros((g_limit, n), dtype=torch.bool, device=state.device)
-    rays = _rays_from_state(state)
+    rays = rays_from_state(state)
     running = torch.ones(n, dtype=torch.bool, device=state.device)
     for g in range(g_limit):
         if not bool(running.any()):
@@ -429,7 +458,7 @@ def build_fused_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
         return engine.TraceResult(
             records=records,
             record_mask=masks,
-            final_rays=_rays_from_state(fstate),
+            final_rays=rays_from_state(fstate),
             generations_run=masks.any(dim=1).sum(),
         )
 

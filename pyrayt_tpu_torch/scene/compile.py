@@ -6,6 +6,9 @@ id/material wiring; equal field by field to the JAX package's) and
 ``params``, a dict of tensors: ``world`` (S, 4, 4) local-to-world
 transforms, ``prim`` (S, 6) packed primitive parameters and ``glass``
 (M, 7) dispersion rows.  The engines and the CUDA kernel read only these.
+A scene rebuilt from tensors that require grad (scene/_backend.py) gets
+params whose graph reaches those tensors; its ``SceneSpec`` is the same as
+a plain build's.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch import materials as matl
+from pyrayt_tpu_torch.config import default_device
+from pyrayt_tpu_torch.core import primitives as prim_mod
 from pyrayt_tpu_torch.core.csg import Operation
 from pyrayt_tpu_torch.core.intervals import LEAF
 from pyrayt_tpu_torch.scene.csg import CSGSurface
@@ -63,6 +68,20 @@ class CompiledScene:
     materials: Tuple[matl.TracableMaterial, ...]  # one per material slot
 
 
+def _stack(entries, empty_shape, dtype, device) -> torch.Tensor:
+    """Stack per-leaf (or per-material) rows into one ``dtype`` tensor on
+    ``device``.  Plain rows stack on NumPy; when any row is a tensor (a
+    differentiable rebuild) they stack with ``torch.stack``, so the result's
+    graph reaches the traced values."""
+    if not entries:
+        return torch.zeros(empty_shape, dtype=dtype, device=device)
+    if any(isinstance(e, torch.Tensor) for e in entries):
+        return torch.stack(
+            [torch.as_tensor(e, dtype=dtype, device=device) for e in entries]
+        )
+    return torch.as_tensor(np.stack(entries), dtype=dtype, device=device)
+
+
 def _flatten_components(components):
     flat = []
     for comp in components:
@@ -80,11 +99,13 @@ def compile_scene(
     dtype: torch.dtype = torch.float32,
 ) -> CompiledScene:
     """Flatten a list of Intersectables into a CompiledScene whose params
-    are ``dtype`` tensors on ``device``.
+    are ``dtype`` tensors on ``device`` (None: the CUDA device, see
+    ``config.default_device``; pass ``device="cpu"`` for the CPU).
 
     ``require_materials=False`` maps material-less surfaces to the absorber
     so geometry-only scenes still compile.
     """
+    device = default_device(device)
     components = _flatten_components(
         components if hasattr(components, "__iter__") else (components,)
     )
@@ -143,15 +164,10 @@ def compile_scene(
         mat_packed=tuple(type(m) in _PACKED_TYPES for m in materials),
         trees=trees,
     )
-    world = np.stack(worlds) if worlds else np.zeros((0, 4, 4))
-    prim = np.stack(prims) if prims else np.zeros((0, 6))
-    glass = (
-        np.stack([m.glass_coeffs() for m in materials])
-        if materials
-        else np.zeros((0, matl.N_GLASS_COEFFS))
-    )
+    glass_rows = [m.glass_coeffs() for m in materials]
     params = {
-        name: torch.as_tensor(value, dtype=dtype, device=device)
-        for name, value in (("world", world), ("prim", prim), ("glass", glass))
+        "world": _stack(worlds, (0, 4, 4), dtype, device),
+        "prim": _stack(prims, (0, prim_mod.PARAM_WIDTH), dtype, device),
+        "glass": _stack(glass_rows, (0, matl.N_GLASS_COEFFS), dtype, device),
     }
     return CompiledScene(spec=spec, params=params, materials=tuple(materials))

@@ -22,8 +22,14 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch.core import primitives as prim
-from pyrayt_tpu_torch.core.operations import transform_rays
-from pyrayt_tpu_torch.scene._backend import xp_for
+from pyrayt_tpu_torch.core.operations import affine_inverse, transform_rays
+from pyrayt_tpu_torch.scene._backend import (
+    as_tensor_like,
+    first_tensor,
+    host,
+    is_traced,
+    plain,
+)
 
 __all__ = [
     "CountedObject",
@@ -61,15 +67,27 @@ def fresh_ids(start: int = 0):
         CountedObject._ids = saved
 
 
-def _plain(*values):
-    """Refuse traced values (see scene/_backend.py) and return floats."""
-    xp_for(*values)
-    return [float(v) for v in values]
+def _copy(matrix):
+    """A copy that keeps a tensor's graph (``copy.copy`` would cut it)."""
+    return matrix.clone() if isinstance(matrix, torch.Tensor) else copy.copy(matrix)
+
+
+def _transform_operands(new_transform, old):
+    """``(new, old)`` ready to multiply: NumPy arrays on the plain path,
+    tensors (of the first tensor's dtype and device) when either is one."""
+    new_transform = plain(new_transform)
+    ref = first_tensor(new_transform, old)
+    if ref is None:
+        return np.asarray(new_transform, dtype=float), old
+    return as_tensor_like(new_transform, ref), as_tensor_like(old, ref)
 
 
 class WorldObject(CountedObject):
     """An object in 3D space with chainable move/scale/rotate operations
-    (deg/rad units, negative scales prohibited)."""
+    (deg/rad units, negative scales prohibited).
+
+    Any argument may be a tensor that requires grad; the world transform
+    then becomes a tensor carrying that gradient (scene/_backend.py)."""
 
     @staticmethod
     def _sin_cos(angle, units="deg"):
@@ -79,8 +97,10 @@ class WorldObject(CountedObject):
             scale = 1.0
         else:
             raise ValueError(f"{units} is not a valid option for angle units")
-        (angle,) = _plain(angle)
-        return math.sin(angle * scale), math.cos(angle * scale)
+        angle = plain(angle)
+        if is_traced(angle):
+            return torch.sin(angle * scale), torch.cos(angle * scale)
+        return math.sin(float(angle) * scale), math.cos(float(angle) * scale)
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -97,6 +117,13 @@ class WorldObject(CountedObject):
 
     def _world_matrix_update_handler(self):
         tx = self._world_coordinate_transform
+        if isinstance(tx, torch.Tensor):
+            self._world_origin = tx @ as_tensor_like(self._obj_origin, tx)
+            world_dir = tx @ as_tensor_like(self._obj_direction, tx)
+            # the norm check needs a concrete value; traced values skip it
+            self._world_direction = world_dir / torch.linalg.norm(world_dir)
+            self._object_coordinate_transform = affine_inverse(tx)
+            return
         self._world_origin = tx @ self._obj_origin
         world_dir = tx @ self._obj_direction
         norm = np.linalg.norm(world_dir)
@@ -106,8 +133,8 @@ class WorldObject(CountedObject):
         self._object_coordinate_transform = np.linalg.inv(tx)
 
     def _append_world_transform(self, new_transform):
-        new_transform = np.asarray(new_transform, dtype=float)
-        self._world_coordinate_transform = new_transform @ self._world_coordinate_transform
+        new, old = _transform_operands(new_transform, self._world_coordinate_transform)
+        self._world_coordinate_transform = new @ old
         for fn in self.var_watchlist:
             fn()
 
@@ -122,16 +149,14 @@ class WorldObject(CountedObject):
     def get_quaternion(self):
         from scipy.spatial import transform as scipy_transform
 
-        r = scipy_transform.Rotation.from_matrix(
-            self._world_coordinate_transform[:-1, :-1]
-        )
+        r = scipy_transform.Rotation.from_matrix(host(self._world_coordinate_transform)[:-1, :-1])
         return r.as_quat()
 
     def get_world_transform(self):
-        return copy.copy(self._world_coordinate_transform)
+        return _copy(self._world_coordinate_transform)
 
     def get_object_transform(self):
-        return copy.copy(self._object_coordinate_transform)
+        return _copy(self._object_coordinate_transform)
 
     def to_object_coordinates(self, coordinates):
         return self._object_coordinate_transform @ np.asarray(coordinates)
@@ -142,8 +167,15 @@ class WorldObject(CountedObject):
     # -- movement -------------------------------------------------------------
 
     def move(self, x=0, y=0, z=0):
-        tx = np.identity(4)
-        tx[:-1, -1] = _plain(x, y, z)
+        x, y, z = plain((x, y, z))
+        if is_traced(x, y, z):
+            ref = first_tensor(x, y, z)
+            tx = torch.eye(4, dtype=ref.dtype, device=ref.device)
+            column = as_tensor_like((x, y, z), ref)
+            tx = torch.cat((torch.cat((tx[:3, :3], column[:, None]), dim=1), tx[3:]))
+        else:
+            tx = np.identity(4)
+            tx[:-1, -1] = [float(v) for v in (x, y, z)]
         self._append_world_transform(tx)
         return self
 
@@ -157,10 +189,16 @@ class WorldObject(CountedObject):
         return self.move(z=movement)
 
     def scale(self, x=1, y=1, z=1):
-        x, y, z = _plain(x, y, z)
-        if min(x, y, z) < 0:
-            raise ValueError("Negative values for scale operations are prohibited")
-        self._append_world_transform(np.diag((x, y, z, 1.0)))
+        x, y, z = plain((x, y, z))
+        for val in (x, y, z):
+            if not is_traced(val) and float(val) < 0:
+                raise ValueError("Negative values for scale operations are prohibited")
+        if is_traced(x, y, z):
+            ref = first_tensor(x, y, z)
+            tx = torch.diag(as_tensor_like((x, y, z, 1.0), ref))
+        else:
+            tx = np.diag((float(x), float(y), float(z), 1.0))
+        self._append_world_transform(tx)
         return self
 
     def scale_x(self, scale_val):
@@ -178,6 +216,20 @@ class WorldObject(CountedObject):
     @staticmethod
     def _rotation_matrix(axes, sin_a, cos_a):
         (i, j) = axes
+        if is_traced(sin_a, cos_a):
+            ref = first_tensor(sin_a, cos_a)
+            entries = {(i, i): cos_a, (j, j): cos_a, (i, j): -sin_a, (j, i): sin_a}
+            one = torch.ones((), dtype=ref.dtype, device=ref.device)
+            rows = [
+                torch.stack(
+                    [
+                        as_tensor_like(entries.get((r, c), one if r == c else 0.0 * one), ref)
+                        for c in range(4)
+                    ]
+                )
+                for r in range(4)
+            ]
+            return torch.stack(rows)
         tx = np.identity(4)
         tx[i, i] = cos_a
         tx[j, j] = cos_a
@@ -201,9 +253,6 @@ class WorldObject(CountedObject):
         return self
 
     def transform(self, transform_matrix):
-        xp_for(transform_matrix)
-        if isinstance(transform_matrix, torch.Tensor):
-            transform_matrix = transform_matrix.cpu().numpy()
         self._append_world_transform(transform_matrix)
         return self
 
@@ -235,7 +284,7 @@ class ObjectGroup(WorldObject):
 
 def bounding_box_spans(point_set):
     """(3, 2) per-axis (min, max) spans of a homogeneous point set (4, k)."""
-    point_set = np.asarray(point_set)
+    point_set = host(point_set)
     return np.stack((np.min(point_set[:3], axis=1), np.max(point_set[:3], axis=1)), axis=1)
 
 
@@ -274,7 +323,7 @@ class Intersectable(WorldObject, abc.ABC):
 
 def _corners_to_cube_points(spans):
     """8 homogeneous corner points of a (3, 2) span box, shape (4, 8)."""
-    spans = np.asarray(spans, dtype=float)
+    spans = host(spans)
     corners = [
         (spans[0, ix], spans[1, iy], spans[2, iz], 1.0)
         for ix in range(2)
@@ -285,15 +334,28 @@ def _corners_to_cube_points(spans):
 
 
 class TracerSurface(Intersectable, abc.ABC):
-    """Binds a primitive type code + packed parameters + material + transform."""
+    """Binds a primitive type code + packed parameters + material + transform.
+
+    Bounding boxes are host-side NumPy values taken from detached numbers:
+    the trace never reads them, so no gradient needs to flow through them.
+    """
 
     prim_type: int  # set by subclasses
 
     def __init__(self, params, bounding_spans, material=None, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        params = np.asarray(params, dtype=float).reshape(-1)
-        packed = np.zeros(prim.PARAM_WIDTH)
-        packed[: params.shape[0]] = params
+        params = plain(params)
+        if is_traced(params):
+            ref = first_tensor(params)
+            params = as_tensor_like(params, ref).reshape(-1)
+            pad = torch.zeros(
+                prim.PARAM_WIDTH - params.shape[0], dtype=ref.dtype, device=ref.device
+            )
+            packed = torch.cat((params, pad))
+        else:
+            params = np.asarray(params, dtype=float).reshape(-1)
+            packed = np.zeros(prim.PARAM_WIDTH)
+            packed[: params.shape[0]] = params
         self._prim_params = packed
         self.material = material
         self._local_bounding_points = _corners_to_cube_points(bounding_spans)
@@ -305,7 +367,7 @@ class TracerSurface(Intersectable, abc.ABC):
 
     @property
     def bounding_points(self):
-        return self._world_coordinate_transform @ self._local_bounding_points
+        return host(self._world_coordinate_transform) @ self._local_bounding_points
 
     @property
     def prim_params(self):

@@ -1,24 +1,38 @@
-"""Concrete traceable surfaces (counterpart of ``pyrayt_tpu.scene.surfaces``)."""
+"""Concrete traceable surfaces (counterpart of ``pyrayt_tpu.scene.surfaces``).
+
+Parameters are packed on NumPy for plain numbers and as torch tensors when
+any parameter is a tensor that requires grad (scene/_backend.py); the
+bounding spans are host values either way.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pyrayt_tpu_torch.core import primitives as prim
-from pyrayt_tpu_torch.scene.objects import TracerSurface, _plain
+from pyrayt_tpu_torch.scene._backend import as_tensor_like, first_tensor, host, is_traced, plain
+from pyrayt_tpu_torch.scene.objects import TracerSurface
 
 __all__ = ["Sphere", "Paraboloid", "XYPlane", "Cuboid", "Cylinder"]
+
+
+def _params(*values):
+    """Packed parameter values: a tensor when any is traced, else floats."""
+    values = plain(values)
+    if is_traced(values):
+        return as_tensor_like(values, first_tensor(values))
+    return np.asarray(values, dtype=float)
 
 
 class Sphere(TracerSurface):
     prim_type = prim.SPHERE
 
     def __init__(self, radius=1, material=None, *args, **kwargs):
-        (r,) = _plain(radius)
+        params = _params(radius)
+        r = float(host(params)[0])
         spans = np.stack((np.array((-r, -r, -r)), np.array((r, r, r))), axis=1)
-        super().__init__(
-            params=(r,), bounding_spans=spans, material=material, *args, **kwargs
-        )
+        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
     def get_radius(self):
         return self._prim_params[0]
@@ -28,10 +42,11 @@ class Paraboloid(TracerSurface):
     prim_type = prim.PARABOLOID
 
     def __init__(self, focus=1, height=1, material=None, *args, **kwargs):
-        f, h = _plain(focus, height)
-        if f <= 0 or h <= 0:
+        params = _params(focus, height)
+        f, h = host(params)
+        if (not is_traced(plain(focus)) and f <= 0) or (not is_traced(plain(height)) and h <= 0):
             raise ValueError("Focus and height must be positive numbers")
-        radius_at_max = np.sqrt(4.0 * f * h)
+        radius_at_max = np.sqrt(max(4.0 * f * h, 0.0))
         spans = np.stack(
             (
                 np.array((-radius_at_max, -radius_at_max, 0.0)),
@@ -39,9 +54,7 @@ class Paraboloid(TracerSurface):
             ),
             axis=1,
         )
-        super().__init__(
-            params=(f, h), bounding_spans=spans, material=material, *args, **kwargs
-        )
+        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
     def get_focus(self):
         return self._prim_params[0]
@@ -51,13 +64,12 @@ class XYPlane(TracerSurface):
     prim_type = prim.PLANE
 
     def __init__(self, width=2, length=2, material=None, *args, **kwargs):
-        w, l = _plain(width, length)
+        params = _params(width, length)
+        w, l = host(params)
         spans = np.stack(
             (np.array((-w / 2, -l / 2, -0.01)), np.array((w / 2, l / 2, 0.01))), axis=1
         )
-        super().__init__(
-            params=(w, l), bounding_spans=spans, material=material, *args, **kwargs
-        )
+        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
 
 class Cuboid(TracerSurface):
@@ -66,12 +78,19 @@ class Cuboid(TracerSurface):
     def __init__(
         self, l_corner=(-1, -1, -1), r_corner=(1, 1, 1), material=None, *args, **kwargs
     ):
-        lo = np.asarray(_plain(*l_corner), dtype=float)[:3]
-        hi = np.asarray(_plain(*r_corner), dtype=float)[:3]
-        spans = np.sort(np.stack((lo, hi), axis=1), axis=1)  # (3, 2)
+        l_corner, r_corner = plain(tuple(l_corner)), plain(tuple(r_corner))
+        if is_traced(l_corner, r_corner):
+            ref = first_tensor(l_corner, r_corner)
+            lo = as_tensor_like(tuple(l_corner)[:3], ref)
+            hi = as_tensor_like(tuple(r_corner)[:3], ref)
+            spans = torch.sort(torch.stack((lo, hi), dim=1), dim=1).values  # (3, 2)
+        else:
+            lo = np.asarray(l_corner, dtype=float)[:3]
+            hi = np.asarray(r_corner, dtype=float)[:3]
+            spans = np.sort(np.stack((lo, hi), axis=1), axis=1)  # (3, 2)
         super().__init__(
             params=spans.reshape(-1),
-            bounding_spans=spans,
+            bounding_spans=host(spans),
             material=material,
             *args,
             **kwargs,
@@ -79,15 +98,13 @@ class Cuboid(TracerSurface):
 
     @classmethod
     def from_sides(cls, x=1, y=1, z=1, **kwargs):
-        dims = np.asarray(_plain(x, y, z))
-        return cls(-0.5 * dims, 0.5 * dims, **kwargs)
+        dims = _params(x, y, z)
+        return cls(tuple(-0.5 * dims), tuple(0.5 * dims), **kwargs)
 
     @classmethod
     def from_length(cls, length, **kwargs):
-        (length,) = _plain(length)
-        half = 0.5 * length
-        corner = np.array((half, half, half))
-        return cls(-corner, corner, **kwargs)
+        half = 0.5 * _params(length)[0]
+        return cls((-half, -half, -half), (half, half, half), **kwargs)
 
     @property
     def axis_spans(self):
@@ -107,15 +124,10 @@ class Cylinder(TracerSurface):
         *args,
         **kwargs,
     ):
-        r, h_min, h_max = _plain(radius, min_height, max_height)
+        params = _params(radius, min_height, max_height, 1.0 if capped else 0.0)
+        r, h_min, h_max, _ = host(params)
         spans = np.stack((np.array((-r, -r, h_min)), np.array((r, r, h_max))), axis=1)
-        super().__init__(
-            params=(r, h_min, h_max, 1.0 if capped else 0.0),
-            bounding_spans=spans,
-            material=material,
-            *args,
-            **kwargs,
-        )
+        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
     def get_radius(self):
         return self._prim_params[0]

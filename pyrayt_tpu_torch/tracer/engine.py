@@ -13,6 +13,12 @@ structure-of-arrays tensors.
 * RECORD: each generation writes a ``(15, n)`` block of a preallocated
   ``(G, 15, n)`` buffer; dead rays are masked, never compacted.
 
+Autograd differentiates the whole loop; every ``where`` that selects
+between a live and a guarded branch keeps the guard on the argument of
+``sqrt`` and of each division, so an unselected branch never leaks a NaN
+cotangent.  This engine is the autograd oracle of the backward kernels
+(ops/fused_grad.py).
+
 Two loop drivers share the step: an early-exit loop (stops when all rays
 are dead) and ``fixed_loop`` (always ``generation_limit`` steps).  This
 engine runs on any device and is the reference the CUDA kernel
@@ -26,6 +32,7 @@ import dataclasses
 from functools import lru_cache
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pyrayt_tpu_torch import materials as matl
 from pyrayt_tpu_torch.config import TraceConfig
@@ -329,9 +336,18 @@ def generation_step(spec, materials, config, tables, state):
 def build_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
     """The plain trace for a static scene: ``fn(params, initial_rays) ->
     TraceResult``.  ``config.fixed_loop`` runs every generation; otherwise
-    the loop stops once no ray is alive."""
+    the loop stops once no ray is alive.  Differentiable by autograd;
+    ``config.remat`` recomputes each generation in the backward pass."""
     check_narrow(spec)
     generations = config.generation_limit
+
+    def step(*args):
+        # remat: keep only each generation's inputs for reverse mode and
+        # recompute its intermediates there (jax.checkpoint in the JAX
+        # package); without grad there is nothing to save either way
+        if config.remat and torch.is_grad_enabled():
+            return checkpoint(generation_step, *args, use_reentrant=False)
+        return generation_step(*args)
 
     def trace(params, initial_rays: RaySet) -> TraceResult:
         tables = scene_tables(params)
@@ -343,7 +359,7 @@ def build_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
         for g in range(generations):
             if not config.fixed_loop and not bool(carry[1].any()):
                 break
-            carry, records[g], masks[g] = generation_step(spec, materials, config, tables, carry)
+            carry, records[g], masks[g] = step(spec, materials, config, tables, carry)
         return TraceResult(
             records=records,
             record_mask=masks,

@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pyrayt_tpu_torch.config import default_device
+
 __all__ = ["RaySet", "concatenate", "METADATA_FIELDS"]
 
 METADATA_FIELDS = ("generation", "intensity", "wavelength", "index", "id")
@@ -43,8 +45,9 @@ class RaySet:
         device=None,
         dtype: torch.dtype = torch.float32,
     ):
-        """A fresh set at the origin with the default metadata."""
-        kw = dict(dtype=dtype, device=device)
+        """A fresh set at the origin with the default metadata, on
+        ``device`` (None: the CUDA device, ``config.default_device``)."""
+        kw = dict(dtype=dtype, device=default_device(device))
         positions = torch.zeros((4, n_rays), **kw)
         positions[3] = 1.0
         return cls(

@@ -2,9 +2,10 @@
 
 Counterpart of ``pyrayt_tpu.tracer.tracer``: same constructor, ``trace()``
 returning the 15-column results DataFrame, getters/setters and
-``calculate_source_ids``.  The trace runs on the tensors' device: on a
-CUDA device through the CUDA kernel (ops/fused_trace.py) when the scene
-supports it, otherwise through the plain engine.
+``calculate_source_ids``.  The trace runs on the CUDA card unless the
+caller passes ``device="cpu"``: on the card through the CUDA kernel
+(ops/fused_trace.py) when the scene supports it, otherwise through the
+plain engine.
 
 Extras: ``trace_device()`` keeps the results on the device (a
 TraceResult); ``trace_fn()`` returns the plain ``(params, rays) ->
@@ -19,7 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from pyrayt_tpu_torch.config import TraceConfig
+from pyrayt_tpu_torch.config import TraceConfig, default_device
 from pyrayt_tpu_torch.scene.compile import compile_scene
 from pyrayt_tpu_torch.tracer import engine
 from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
@@ -56,8 +57,9 @@ class RayTracer:
             ``world_index``, ``apply_intensity_threshold``, ...).  The
             tracer's own state wins for ``generation_limit``, ``ray_offset``
             and ``intensity_threshold``
-        :param device: where rays and scene params live (torch's default
-            device when None); a CUDA device runs the CUDA kernel
+        :param device: where rays and scene params live.  None means
+            ``"cuda"``, and raises when no CUDA device is present; pass
+            ``device="cpu"`` to run the plain engine on the CPU
         :param dtype: float32 (production) or float64
         """
         self._sources = sources if hasattr(sources, "__iter__") else (sources,)
@@ -66,7 +68,7 @@ class RayTracer:
         self._generation_limit = generation_limit
         self._base_config = config if config is not None else TraceConfig()
         self._world_index = self._base_config.world_index
-        self._device = torch.device(device) if device is not None else torch.get_default_device()
+        self._device = default_device(device)
         self._dtype = dtype
         self._frame_data = None
         self._result = None

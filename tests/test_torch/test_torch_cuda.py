@@ -86,3 +86,204 @@ def test_wrapper_rejects_bad_inputs(cuda):
         ft.fused_trace(spec, config, state, obj_tx.double(), prim, glass)
     with pytest.raises(ValueError, match="shape"):
         ft.fused_trace(spec, config, state, obj_tx[:2].contiguous(), prim, glass)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels K3 (loss-fused) and K4 (generic) against their plain
+# versions, on the forward parity scenes and the gradient scenes
+# ---------------------------------------------------------------------------
+
+from pyrayt_tpu_torch.analysis import metrics  # noqa: E402
+from pyrayt_tpu_torch.ops import fused_grad as fg  # noqa: E402
+from torch_parity_scenes import GRAD_SCENES, follows_float64_path, grad_rays  # noqa: E402
+
+ALL_SCENES = sorted(SCENES) + [f"grad:{name}" for name in sorted(GRAD_SCENES)]
+# The imager's coordinates reach 50 units, where the 1e-6 push-off is below
+# float32 resolution: a float32 trace can re-hit the surface a ray just left
+# (distances ~1e-6 where float64 finds the next surface).  The plain version
+# then is no oracle at float32: on the float64 trace's own records its
+# float32 backward misses the float64 one by ~10% of max |g|, though by
+# < 1e-5 over the rays whose float32 trace follows the float64 path
+# (test_torch_grad.py::test_imager_float32_recompute_is_ill_conditioned);
+# replaying the forward kernel's float32 records it misses the kernel by up
+# to 65% of max |g| on an H100 even over those rays.  So at float32 the
+# imager's kernel runs on those rays, which must be at least
+# FOLLOW_SHARE32 of them (11 of 24 on an H100), and is held against the
+# plain version at float64 on the float64 records of the same rays.
+ILL_CONDITIONED32 = ("grad:imager",)
+FOLLOW_SHARE32 = 0.25
+CASES = [(name, torch.float64) for name in ALL_SCENES] + [
+    (name, torch.float32) for name in ALL_SCENES if name not in ILL_CONDITIONED32
+] + [(name, torch.float32) for name in ILL_CONDITIONED32]
+# float64: the kernel contracts FMAs and sums in another order
+TOL64 = dict(rtol=1e-9, atol=1e-9)
+# float32: parameter cotangents within this share of their largest entry,
+# and this share of rays with every initial-state cotangent within it (a
+# grazing ray's recomputed hit is ill-conditioned at float32, as for K1)
+REL32 = 1e-3
+
+
+def backward_inputs(name, device, dtype):
+    """(spec, config, kernel arguments, reference arguments), each
+    arguments tuple ``(kernel inputs, records, masks)`` with the forward
+    kernel's records on the card, float64 scene math cast to ``dtype``.
+    The reference is the kernel's own arguments, except for an
+    ILL_CONDITIONED32 scene at float32: there both keep only the rays whose
+    float32 trace follows the float64 path, and the reference is float64."""
+    if name.startswith("grad:"):
+        build, _, _, gens, _ = GRAD_SCENES[name[5:]]
+        pos, dirs, meta = grad_rays(name[5:])
+    else:
+        build, origin, angle, _, gens = SCENES[name]
+        pos, dirs, meta = numpy_rays(origin, angle, SCENES[name][3])
+    with TORCH_NS.fresh_ids():
+        scene = TORCH_NS.compile(build(TORCH_NS), device=device, dtype=torch.float64)
+    rays = interop.rays_from_numpy(pos, dirs, meta, device=device, dtype=torch.float64)
+    inputs = ft.kernel_inputs(scene.params, rays.to(dtype=dtype))
+    config = TraceConfig(generation_limit=gens)
+    records, masks, _ = ft.fused_trace(scene.spec, config, *inputs)
+    args = (inputs, records, masks)
+    if dtype != torch.float32 or name not in ILL_CONDITIONED32:
+        return scene.spec, config, args, args
+    inputs64 = ft.kernel_inputs(scene.params, rays)
+    records64, masks64, _ = ft.fused_trace(scene.spec, config, *inputs64)
+    keep = follows_float64_path(records, masks, records64, masks64)
+    assert keep.float().mean() >= FOLLOW_SHARE32
+
+    def cut(inputs, records, masks):
+        return ((inputs[0][:, keep].contiguous(),) + tuple(inputs[1:]),
+                records[..., keep].contiguous(), masks[:, keep].contiguous())
+
+    return scene.spec, config, cut(*args), cut(inputs64, records64, masks64)
+
+
+def detector_losses(records, masks):
+    """One descriptor per plan, on the surface most masked rows end on."""
+    sid = float(records[:, 5][masks].mode().values)
+    return [
+        metrics.RmsSpotRadius(sid),
+        metrics.FocusError(1.0, sid),
+        metrics.SoftFocusError(1.0, sid, (0.6, 0.6), 0.1),
+    ]
+
+
+def assert_backward_close(kernel, plain, dtype):
+    for name, k, p in zip(("d_objtx", "d_prim", "d_glass", "d_state0"), kernel, plain):
+        assert torch.isfinite(k).all(), name
+        if dtype == torch.float64:
+            torch.testing.assert_close(k, p, msg=name, **TOL64)
+        elif name == "d_state0":
+            rows = p.abs().amax(dim=1, keepdim=True)
+            if p.dtype != k.dtype:  # a float64 reference (ILL_CONDITIONED32)
+                # float32 rounding of a position's or direction's cotangent
+                # lands on all three components (normalization mixes them),
+                # where float64 may cancel one to ~1e-14: hold those rows
+                # at their block's scale
+                rows = torch.cat((rows[:4].amax().expand(4, 1), rows[4:8].amax().expand(4, 1),
+                                  rows[8:]))
+            scale = REL32 * rows + 1e-6
+            ok = ((k - p).abs() <= scale).all(dim=0)
+            assert ok.float().mean() >= MIN_AGREE32, name
+        else:
+            assert float((k - p).abs().max()) <= REL32 * float(p.abs().max()) + 1e-6, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype", CASES)
+def test_generic_backward_matches_plain(cuda, name, dtype):
+    spec, config, (inputs, records, masks), ref = backward_inputs(name, cuda, dtype)
+    ref_inputs, ref_records, ref_masks = ref
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    d_records = torch.randn(records.shape, generator=gen, dtype=torch.float64).to(cuda)
+    d_fstate = torch.randn(inputs[0].shape, generator=gen, dtype=torch.float64).to(cuda)
+    before = fg.fused_bwd.launches
+    kernel = fg.fused_bwd(spec, config, *inputs, records, masks, d_records.to(dtype),
+                          d_fstate.to(dtype))
+    assert fg.fused_bwd.launches == before + 1
+    plain = fg.fused_bwd_plain(spec, config, *ref_inputs, ref_records, ref_masks,
+                               d_records.to(ref_records.dtype), d_fstate.to(ref_records.dtype))
+    torch.cuda.synchronize()
+    assert float(kernel[0].abs().max()) > 0
+    assert_backward_close(kernel, plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype", CASES)
+def test_loss_backward_matches_plain(cuda, name, dtype):
+    spec, config, (inputs, records, masks), ref = backward_inputs(name, cuda, dtype)
+    ref_inputs, ref_records, ref_masks = ref
+    one = torch.ones((), device=cuda)
+    for loss in detector_losses(records, masks):
+        plan = fg.loss_plan(loss)
+        scal = plan.row(plan.scalars(records, masks), one)
+        before = fg.fused_bwd_loss.launches
+        kernel = fg.fused_bwd_loss(spec, config, *inputs, records, masks, scal, plan)
+        assert fg.fused_bwd_loss.launches == before + 1
+        ref_scal = plan.row(plan.scalars(ref_records, ref_masks), one)
+        plain = fg.fused_bwd_loss_plain(spec, config, *ref_inputs, ref_records, ref_masks,
+                                        ref_scal, plan)
+        torch.cuda.synchronize()
+        assert_backward_close(kernel, plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_backward_repeats_bit_identical(cuda, dtype):
+    spec, config, (inputs, records, masks), _ = backward_inputs("grad:imager", cuda, dtype)
+    loss = detector_losses(records, masks)[0]
+    plan = fg.loss_plan(loss)
+    scal = plan.row(plan.scalars(records, masks), torch.ones((), device=cuda))
+    first = fg.fused_bwd_loss(spec, config, *inputs, records, masks, scal, plan)
+    second = fg.fused_bwd_loss(spec, config, *inputs, records, masks, scal, plan)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_reject_bad_inputs(cuda):
+    spec, config, (inputs, records, masks), _ = backward_inputs("condenser", cuda, torch.float32)
+    d_records = torch.zeros_like(records)
+    d_fstate = torch.zeros_like(inputs[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        fg.fused_bwd(spec, config, *inputs, records, masks, d_records.transpose(0, 2)
+                     .contiguous().transpose(0, 2), d_fstate)
+    with pytest.raises(ValueError, match="float32"):
+        fg.fused_bwd(spec, config, *inputs, records.double(), masks, d_records, d_fstate)
+    with pytest.raises(ValueError, match="shape"):
+        fg.fused_bwd(spec, config, *inputs, records[:2].contiguous(), masks, d_records, d_fstate)
+    with pytest.raises(ValueError, match="on cuda"):  # mixed devices
+        fg.fused_bwd(spec, config, *(t.cpu() for t in inputs), records, masks, d_records, d_fstate)
+    plan = fg.loss_plan(metrics.RmsSpotRadius(1.0))
+    with pytest.raises(ValueError, match="scalar row"):
+        fg.fused_bwd_loss(spec, config, *inputs, records, masks, torch.zeros(40, device=cuda), plan)
+
+
+@pytest.mark.cuda
+def test_objective_runs_k1_and_k3_on_the_card(cuda):
+    """build_objective on CUDA rays launches K1 then K3, and its theta
+    gradient equals the plain engine's."""
+    from pyrayt_tpu_torch.analysis import build_objective
+
+    build, _, _, gens, _ = GRAD_SCENES["condenser"]
+    rays = interop.rays_from_numpy(*grad_rays("condenser"), device=cuda, dtype=torch.float64)
+
+    def build_fn(theta):
+        lens = TORCH_NS.comp.thick_lens(theta[0], -1.0, 0.25, aperture=0.5, r1_sign=1,
+                                       material=TORCH_NS.matl.glass["BK7"])
+        return [lens.move_x(theta[1]), TORCH_NS.comp.baffle((1.0, 1.0)).move_x(1.0)]
+
+    with TORCH_NS.fresh_ids():
+        sid = float(TORCH_NS.compile(build_fn([1.0, 0.0])).spec.leaf_ids[-1])
+    loss = metrics.RmsSpotRadius(sid)
+    grads = []
+    for use_fused in (None, False):
+        objective = build_objective(build_fn, rays, loss,
+                                    TraceConfig(generation_limit=gens, use_fused=use_fused))
+        theta = torch.tensor([1.0, 0.02], dtype=torch.float64, device=cuda, requires_grad=True)
+        k1, k3 = ft.fused_trace.launches, fg.fused_bwd_loss.launches
+        (g,) = torch.autograd.grad(objective(theta), theta)
+        launched = (ft.fused_trace.launches - k1, fg.fused_bwd_loss.launches - k3)
+        assert launched == ((1, 1) if use_fused is None else (0, 0))
+        grads.append(g)
+    torch.testing.assert_close(grads[0], grads[1], **TOL64)
+    assert float(grads[0].abs().max()) > 0

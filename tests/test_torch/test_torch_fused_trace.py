@@ -215,12 +215,12 @@ def test_scene_program_capacity_is_checked(twins):
     for k in range(5):  # 2**5 intervals > 16
         solid = difference(solid, Sphere(0.1, material=t_matl.mirror).move_x(0.3 * k))
     with pytest.raises(ValueError, match="intervals"):
-        ft.scene_program(compile_scene([solid]).spec)
+        ft.scene_program(compile_scene([solid], device="cpu").spec)
     blob = Sphere(1.0, material=t_matl.mirror)
     for k in range(8):  # 18 event rows > 16
         blob = union(blob, Sphere(1.0, material=t_matl.mirror).move_x(k + 1.0))
     with pytest.raises(ValueError, match="event rows"):
-        ft.scene_program(compile_scene([blob]).spec)
+        ft.scene_program(compile_scene([blob], device="cpu").spec)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +251,8 @@ def test_custom_material_takes_the_plain_engine():
         def pure_trace(self, directions, normals, wavelength, index, intensity):
             return directions, index, intensity
 
-    spec = compile_scene([comp.thick_lens(1.0, -1.0, 0.25, aperture=0.5, material=Weird())]).spec
+    lens = comp.thick_lens(1.0, -1.0, 0.25, aperture=0.5, material=Weird())
+    spec = compile_scene([lens], device="cpu").spec
     assert not ft.supports_fused(spec)
     assert not ft.pick_fused(spec, TraceConfig(), "cuda")
     with pytest.raises(ValueError, match="non-packed"):
@@ -264,7 +265,7 @@ def test_wide_scenes_raise_not_implemented():
     from pyrayt_tpu_torch import components as comp
     from pyrayt_tpu_torch.scene.compile import compile_scene
 
-    spec = compile_scene(comp.microlens_array(1.0, 0.2, 5, 4, 0.5)).spec  # 40 leaves
+    spec = compile_scene(comp.microlens_array(1.0, 0.2, 5, 4, 0.5), device="cpu").spec  # 40 leaves
     with pytest.raises(NotImplementedError, match="wide"):
         ft.pick_fused(spec, TraceConfig(use_fused=False), "cpu")
     with pytest.raises(NotImplementedError, match="wide"):

@@ -55,7 +55,7 @@ def test_component_zoo_compiles_identically():
     with j_fresh():
         j_scene = j_compile(_zoo(j_comp, j_matl))
     with t_fresh():
-        t_scene = t_compile(_zoo(t_comp, t_matl), dtype=torch.float64)
+        t_scene = t_compile(_zoo(t_comp, t_matl), device="cpu", dtype=torch.float64)
     assert_same_compiled(j_scene, t_scene)
 
 
@@ -71,13 +71,13 @@ def test_component_zoo_compiles_identically():
 )
 def test_sources_match_jax(make):
     j = make(j_comp).generate_rays(23)
-    t = make(t_comp).generate_rays(23, dtype=torch.float64)
+    t = make(t_comp).generate_rays(23, device="cpu", dtype=torch.float64)
     np.testing.assert_allclose(t.to_numpy(), j.to_numpy(), rtol=1e-12, atol=1e-12)
 
 
 def test_lamp_is_seeded_and_lambertian():
-    a = t_comp.Lamp(1.0, 2.0, max_angle=60, seed=3).generate_rays(20000, dtype=torch.float64)
-    b = t_comp.Lamp(1.0, 2.0, max_angle=60, seed=3).generate_rays(20000, dtype=torch.float64)
+    a, b = (t_comp.Lamp(1.0, 2.0, max_angle=60, seed=3).generate_rays(
+        20000, device="cpu", dtype=torch.float64) for _ in range(2))
     np.testing.assert_array_equal(a.to_numpy(), b.to_numpy())
     cos_t = a.directions[0].numpy()
     assert cos_t.min() >= np.cos(np.pi / 3) - 1e-12
@@ -86,7 +86,7 @@ def test_lamp_is_seeded_and_lambertian():
     np.testing.assert_allclose(a.intensity.numpy(), 100 * cos_t)
     assert abs(a.positions[1].numpy().std() - 1.0 / np.sqrt(12)) < 0.01
     lamp = t_comp.StaticLamp(1.0, 1.0, seed=1)
-    assert lamp.generate_rays(8) is lamp.generate_rays(8)
+    assert lamp.generate_rays(8, "cpu") is lamp.generate_rays(8, "cpu")
 
 
 def test_materials_match_jax():
@@ -104,11 +104,48 @@ def test_materials_match_jax():
 
 
 def test_traced_values_are_refused():
-    r = torch.tensor(1.0, requires_grad=True)
+    """Traced values (tensors that require grad) are no longer refused: a
+    rebuild carries their gradient into the scene params, and a traced
+    radius without a stated sign is still refused, with the JAX text."""
+    r = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
     assert _backend.is_traced(r) and _backend.is_traced((0.0, r))
     assert not _backend.is_traced(torch.tensor(1.0), 1.0)
-    with pytest.raises(NotImplementedError, match="gradient slice"):
-        Sphere(r)
+    assert _backend.xp_for(1.0, r) is torch and _backend.xp_for(1.0, torch.tensor(1.0)) is np
+    sphere = Sphere(r).move_x(2 * r)
+    compiled = t_compile([sphere], device="cpu", dtype=torch.float64)
+    (compiled.params["prim"][0, 0] + compiled.params["world"][0, 0, 3]).backward()
+    assert float(r.grad) == 3.0
+    with pytest.raises(ValueError, match="r1_sign"):
+        t_comp.thick_lens(r, -r, 0.1)
+
+
+def test_traced_rebuild_matches_plain_build():
+    """The same scene built from traced and from plain values: equal
+    SceneSpec and params, and the traced params reach theta."""
+
+    def build(r, t):
+        lens = t_comp.thick_lens(
+            r, -r, t, aperture=0.8, material=t_matl.glass["BK7"], r1_sign=1, r2_sign=-1
+        )
+        mirror = t_comp.spherical_mirror(2 * r, t, aperture=0.5, radius_sign=1).move_x(3.0)
+        box = t_comp.Cuboid.from_sides(t, 2 * t, 0.5).rotate_z(10 * r).move_y(t)
+        return [lens, mirror, box, t_comp.baffle((3.0, 3.0)).move_x(2.0 + r)]
+
+    theta = torch.tensor([1.7, 0.2], dtype=torch.float64, requires_grad=True)
+    with t_fresh():
+        traced = t_compile(build(theta[0], theta[1]), device="cpu", dtype=torch.float64)
+    with t_fresh():
+        plain = t_compile(build(1.7, 0.2), device="cpu", dtype=torch.float64)
+    assert traced.spec == plain.spec
+    for name in ("world", "prim", "glass"):
+        torch.testing.assert_close(
+            traced.params[name].detach(), plain.params[name], rtol=1e-14, atol=1e-14
+        )
+    assert traced.params["world"].grad_fn is not None
+    grads = torch.autograd.grad(
+        traced.params["world"].sum() + traced.params["prim"].sum(), theta
+    )[0]
+    assert torch.isfinite(grads).all() and (grads != 0).all()
 
 
 def test_eager_intersect_and_normals_match_jax():

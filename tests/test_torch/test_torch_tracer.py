@@ -12,9 +12,11 @@ import pyrayt_tpu as j_pyrayt
 import pyrayt_tpu_torch as t_pyrayt
 from pyrayt_tpu.config import TraceConfig as JConfig
 from pyrayt_tpu.tracer import engine as j_engine
+from pyrayt_tpu_torch import interop
 from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.tracer import engine
 from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
+from pyrayt_tpu_torch.tracer.rayset import RaySet
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 
@@ -61,7 +63,8 @@ def test_ray_tracer_collimator_matches_jax_frame():
     with t_pyrayt.scene.fresh_ids():
         t_source, t_parts = _collimator(t_pyrayt)
         tracer = t_pyrayt.RayTracer(
-            t_source, t_parts, rays_per_source=50, generation_limit=100, dtype=torch.float64
+            t_source, t_parts, rays_per_source=50, generation_limit=100, dtype=torch.float64,
+            device="cpu",
         )
         frame = tracer.trace()
     assert len(frame) == len(j_frame) == 150
@@ -76,7 +79,9 @@ def test_ray_tracer_collimator_matches_jax_frame():
 def test_ray_tracer_api():
     source, parts = _collimator(t_pyrayt)
     second = t_pyrayt.components.LineOfRays(0.2).move_x(-1.0)
-    tracer = t_pyrayt.RayTracer([source, second], parts, rays_per_source=8, generation_limit=4)
+    tracer = t_pyrayt.RayTracer(
+        [source, second], parts, rays_per_source=8, generation_limit=4, device="cpu"
+    )
     assert tracer.get_config().generation_limit == 4
     result = tracer.trace_device()
     assert result.records.dtype == torch.float32  # the production dtype
@@ -93,6 +98,49 @@ def test_ray_tracer_api():
     tracer.set_config(TraceConfig(use_fused=True))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tracer.trace()
+
+
+def test_ray_tracer_defaults_to_the_card(monkeypatch):
+    """No device means CUDA; without a card that raises instead of
+    falling back to the CPU."""
+    source, parts = _collimator(t_pyrayt)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        t_pyrayt.RayTracer(source, parts)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        source.generate_rays(4)
+    assert source.generate_rays(4, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert t_pyrayt.RayTracer(source, parts)._device == torch.device("cuda")
+    assert t_pyrayt.RayTracer(source, parts, device="cpu")._device == torch.device("cpu")
+
+
+def _compiled_params(**kw):
+    return t_pyrayt.scene.compile_scene(_collimator(t_pyrayt)[1], **kw).params["world"]
+
+
+def _numpy_rays(**kw):
+    pos, dirs = np.zeros((4, 3)), np.zeros((4, 3))
+    return interop.rays_from_numpy(pos, dirs, np.zeros((5, 3)), **kw).positions
+
+
+def _numpy_params(**kw):
+    arrays = {"world": np.eye(4)[None], "prim": np.zeros((1, 6)), "glass": np.zeros((1, 7))}
+    return interop.params_from_numpy(arrays, **kw)["world"]
+
+
+def _created_rays(**kw):
+    return RaySet.create(3, **kw).positions
+
+
+@pytest.mark.parametrize("make", [_compiled_params, _numpy_rays, _numpy_params, _created_rays])
+def test_builders_default_to_the_card(monkeypatch, make):
+    """Every public ``device=None`` means CUDA, as in RayTracer: the scene
+    and the rays of one program never land on two devices unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
 
 
 def test_pin_restores_poses():

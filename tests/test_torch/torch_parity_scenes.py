@@ -8,6 +8,7 @@ package; ``numpy_rays`` makes one seeded ray set for both.
 import types
 
 import numpy as np
+import torch
 
 import pyrayt_tpu_torch.components as t_comp
 import pyrayt_tpu_torch.materials as t_matl
@@ -93,3 +94,80 @@ def numpy_rays(origin, half_angle_deg, n, seed=7):
         )
     )
     return pos, dirs, meta
+
+
+# ---------------------------------------------------------------------------
+# gradient scenes: the five scenes of tests/test_ops/test_fused_grad.py
+# ---------------------------------------------------------------------------
+
+
+def _mirror(m):
+    mirror = m.comp.spherical_mirror(radius=2.0, thickness=0.2, aperture=1.0)
+    return [mirror, m.comp.baffle((4.0, 4.0)).move_x(3.0)]
+
+
+def _union_blob(m):
+    left = m.Sphere(1.0, material=m.matl.glass["ideal"])
+    right = m.Sphere(1.0, material=m.matl.glass["ideal"]).move_x(0.8)
+    return [m.csg.union(left, right), m.comp.baffle((6.0, 6.0)).move_x(4.0)]
+
+
+def _imager(m):
+    glass = m.matl.glass["BK7"]
+    radius = 2 * (float(glass.index_at(0.532)) - 1) * 50.0
+    lens = m.comp.thick_lens(radius, -radius, 5.0, aperture=25.4, material=glass)
+    stop = m.comp.aperture(size=(25.4, 25.4), aperture_size=3.0).move_x(25.0)
+    return [lens, stop, m.comp.baffle((25.4, 25.4)).move_x(50.0)]
+
+
+# name -> (builder, rays: (kind, origin, size), n rays, generation limit,
+#          wavelength spread)
+GRAD_SCENES = {
+    "condenser": (_condenser, ("cone", (-0.5, 0.0, 0.0), 10.0), 64, 6, False),
+    "mirror": (_mirror, ("line_back", (1.5, 0.0, 0.0), 0.3), 32, 4, False),
+    "glass_coeffs": (_condenser, ("cone", (-0.5, 0.0, 0.0), 10.0), 64, 6, True),
+    "union_blob": (_union_blob, ("line", (-2.0, 0.0, 0.0), 0.6), 32, 5, False),
+    "imager": (_imager, ("circle", (-10.0, 0.0, 0.0), 2.5), 24, 6, False),
+}
+
+
+def grad_rays(name, seed=5):
+    """(positions, directions, metadata) of a gradient scene, from a seed:
+    a cone of half-angle ``size`` degrees, a line of half-width ``size``
+    along y (``line_back`` travels -X), or a circle of radius ``size`` in
+    the yz plane, every position jittered by 1e-4."""
+    _, (kind, origin, size), n, _, spread = GRAD_SCENES[name]
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((4, n))
+    pos[:3] = np.asarray(origin, dtype=float)[:, None] + rng.normal(0.0, 1e-4, (3, n))
+    pos[3] = 1.0
+    dirs = np.zeros((4, n))
+    dirs[0] = 1.0
+    if kind == "cone":
+        theta = np.deg2rad(size) * np.sqrt(rng.uniform(0.0, 1.0, n))
+        phi = rng.uniform(0.0, 2 * np.pi, n)
+        dirs[0] = np.cos(theta)
+        dirs[1] = np.sin(theta) * np.cos(phi)
+        dirs[2] = np.sin(theta) * np.sin(phi)
+    elif kind in ("line", "line_back"):
+        pos[1] += np.sort(rng.uniform(-size, size, n))
+        if kind == "line_back":
+            dirs[0] = -1.0
+    else:  # circle
+        phi = rng.uniform(0.0, 2 * np.pi, n)
+        pos[1] += size * np.sin(phi)
+        pos[2] += size * np.cos(phi)
+    wavelength = rng.uniform(0.45, 0.65, n) if spread else np.full(n, 0.633)
+    meta = np.stack(
+        (np.zeros(n), np.full(n, 100.0), wavelength, np.ones(n), np.arange(n, dtype=float))
+    )
+    return pos, dirs, meta
+
+
+def follows_float64_path(records32, masks32, records64, masks64):
+    """(n,) bool: the rays whose float32 trace has the float64 trace's
+    masks and hit surfaces in every generation."""
+    same_surface = torch.where(
+        masks64, records64[:, 5] == records32[:, 5].to(records64.dtype), True
+    )
+    return (masks32 == masks64).all(dim=0) & same_surface.all(dim=0)
