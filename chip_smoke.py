@@ -56,9 +56,22 @@ raises, and any failure exits non-zero:
              and float32, each output at its own scale; then K2 with and
              without save_fold, K5, K6 and K7 per generation and per step,
              and their plain versions, CUDA events, beside each kernel's
-             bound.
+             bound;
+14. wide fused gradients — the main path of this slice, the monolithic
+             wide backward K8 (``TraceConfig(wide_grad="fused")``): (a) K8
+             against its plain version on the reverse chain of one K2 trace
+             of the 8x8 array (129 leaves) and of the 16x16 array (513
+             leaves, past the JAX package's 300-leaf cap on its K8), each at
+             2**20 rays and 4 generations with bench.py:1245-1306's ray grid,
+             RmsSpotRadius through K8's loss mode and the lenslet blur through
+             its generic mode, float64 and float32, each output at its own
+             scale, two launches bit-identical; (b) at float64 K8 against the
+             staged backward on the same trace; (c) both 8x8 training
+             witnesses of phase 12 through K2 + K8, K8's launches up and the
+             staged kernels' none; (d) K8, its plain version and the staged
+             backward per step, CUDA events, beside K8's bound.
 
-Phases 1-8 keep their depth; phases 9-13 run the 16x16 array at full width
+Phases 1-8 keep their depth; phases 9-14 run the 16x16 array at full width
 (2**20 rays) except where a phase says otherwise.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
@@ -214,12 +227,57 @@ def wide_compare(torch, ft, fg, spec, config, inputs, dtype):
     }
 
 
-# row blocks of the staged kernels' per-ray outputs that share a unit (a
-# vector's rows are held at the vector's scale): buf = [p3, v3, d_best_d,
-# d_best_n], dcarry = the carried rows' cotangents, dpv = [d_p3, d_v3]
+# row blocks of the wide backward kernels' per-ray outputs that share a
+# unit (a vector's rows are held at the vector's scale): buf = [p3, v3,
+# d_best_d, d_best_n], dcarry = the carried rows' cotangents, dpv = [d_p3,
+# d_v3], d_state0 = the initial state's 13 rows
 RAY_BLOCKS = {"buf": ((0, 3), (3, 6), (6, 7), (7, 10)),
               "dcarry": ((0, 3), (3, 6), (6, 7), (7, 8), (8, 9), (9, 10), (10, 11)),
-              "dpv": ((0, 3), (3, 6))}
+              "dpv": ((0, 3), (3, 6)),
+              "d_state0": ((0, 3), (3, 4), (4, 7), (7, 8), (8, 9), (9, 10), (10, 11),
+                           (11, 12), (12, 13))}
+
+
+def hold(torch, stats, kernel, names, k_out, p_out, dtype):
+    """Hold each output of ``kernel`` against the reference's at its own
+    scale (max |reference|; for a per-ray output, of each block of
+    RAY_BLOCKS), accumulating into ``stats``: max |kernel - reference|, the
+    values of the summed outputs outside the bound, and the largest share
+    of rays with a value outside it in one call."""
+    for output, k, p in zip(names, k_out, p_out):
+        k, p = k.double(), p.double()
+        diff = (k - p).abs()
+        blocks = RAY_BLOCKS.get(output)
+        if blocks:
+            scale = torch.cat([p[a:b].abs().max().expand(b - a) for a, b in blocks])[:, None]
+        else:
+            scale = p.abs().max()
+        bound = REL64 * scale + ABS64 if dtype == torch.float64 else REL32 * scale
+        outside = diff > bound
+        s = stats.setdefault(f"{kernel}.{output}", {
+            "max_abs_err": 0.0, "max_abs_plain": 0.0, "per_ray": bool(blocks),
+            "values_outside": 0, "share_outside": 0.0, "first_rays_outside": [],
+            "rows_outside": [], "finite": True})
+        s["max_abs_err"] = max(s["max_abs_err"], float(diff.max()))
+        s["max_abs_plain"] = max(s["max_abs_plain"], float(p.abs().max()))
+        s["finite"] = s["finite"] and bool(torch.isfinite(k).all())
+        if blocks:
+            rays = outside.any(dim=0).nonzero().squeeze(1)
+            s["share_outside"] = max(s["share_outside"], rays.numel() / k.shape[-1])
+            s["first_rays_outside"] = (s["first_rays_outside"] + rays[:4].tolist())[:8]
+            s["rows_outside"] = sorted(set(s["rows_outside"]) | set(
+                outside.any(dim=1).nonzero().squeeze(1).tolist()))
+        else:
+            s["values_outside"] += int(outside.sum())
+
+
+def assert_held(stats, dtype, torch, tag):
+    """Every output of ``stats`` (``hold``) finite and inside its bound."""
+    share = 1.0 - MASK_SHARE64 if dtype == torch.float64 else DIFF_SHARE32
+    for key, s in stats.items():
+        assert s["finite"], (tag, key, s)
+        assert s["share_outside"] <= share if s["per_ray"] else s["values_outside"] == 0, \
+            (tag, key, s)
 
 
 def staged_kernel_compare(torch, ft, fg, spec, config, inputs, trace, modes, dtype):
@@ -228,48 +286,16 @@ def staged_kernel_compare(torch, ft, fg, spec, config, inputs, trace, modes, dty
     them: the reverse chain over one K2 trace (``trace`` = records, masks,
     fold5, win), carried on by the kernels' outputs.  ``modes`` maps a label
     to K5's record cotangent: ``(keyword arguments of generation g, initial
-    carried cotangent)``.  Per kernel output, at its own scale (max |plain|;
-    for a per-ray output, of each block of RAY_BLOCKS): max |kernel -
-    plain|, the values of the summed outputs outside the bound, and the
-    largest share of rays with a value outside it in one launch."""
+    carried cotangent)``.  Returns ``hold``'s statistics per kernel
+    output."""
     state0, obj_tx, prim, glass, slots, _ = inputs
     records, masks, fold5, win = trace
     plan_entries = ft.wide_fold_plan(spec)
     groups = [idx for kind, idx, _ in plan_entries if kind == "group"]
     has_singles = any(kind == "single" for kind, _, _ in plan_entries)
     ran_any = fg.generations_ran(records, masks).any(dim=1).tolist()
-    n = state0.shape[1]
     stats = {}
-
-    def hold(kernel, k_out, p_out):
-        names = (("buf", "dcarry", "d_glass") if kernel == "staged_tail"
-                 else ("d_objtx", "d_prim", "dpv"))
-        for output, k, p in zip(names, k_out, p_out):
-            k, p = k.double(), p.double()
-            diff = (k - p).abs()
-            blocks = RAY_BLOCKS.get(output)
-            if blocks:
-                scale = torch.cat([p[a:b].abs().max().expand(b - a) for a, b in blocks])[:, None]
-            else:
-                scale = p.abs().max()
-            bound = REL64 * scale + ABS64 if dtype == torch.float64 else REL32 * scale
-            outside = diff > bound
-            s = stats.setdefault(f"{kernel}.{output}", {
-                "max_abs_err": 0.0, "max_abs_plain": 0.0, "per_ray": bool(blocks),
-                "values_outside": 0, "share_outside": 0.0, "first_rays_outside": [],
-                "rows_outside": [], "finite": True})
-            s["max_abs_err"] = max(s["max_abs_err"], float(diff.max()))
-            s["max_abs_plain"] = max(s["max_abs_plain"], float(p.abs().max()))
-            s["finite"] = s["finite"] and bool(torch.isfinite(k).all())
-            if blocks:
-                rays = outside.any(dim=0).nonzero().squeeze(1)
-                s["share_outside"] = max(s["share_outside"], rays.numel() / n)
-                s["first_rays_outside"] = (s["first_rays_outside"] + rays[:4].tolist())[:8]
-                s["rows_outside"] = sorted(set(s["rows_outside"]) | set(
-                    outside.any(dim=1).nonzero().squeeze(1).tolist()))
-            else:
-                s["values_outside"] += int(outside.sum())
-
+    tail_names, fold_names = ("buf", "dcarry", "d_glass"), ("d_objtx", "d_prim", "dpv")
     for label, (kw_of, carry) in modes.items():
         for g in reversed(range(len(ran_any))):
             if not ran_any[g]:
@@ -277,17 +303,19 @@ def staged_kernel_compare(torch, ft, fg, spec, config, inputs, trace, modes, dty
             tail_args = (spec, config, state0, records[g], masks[g], masks[g - 1] if g else None,
                          fold5[g], glass, carry)
             k5 = fg.staged_tail(*tail_args, **kw_of(g))
-            hold("staged_tail", k5, fg.staged_tail_plain(*tail_args, **kw_of(g)))
+            hold(torch, stats, "staged_tail", tail_names, k5,
+                 fg.staged_tail_plain(*tail_args, **kw_of(g)), dtype)
             buf, dcarry, _ = k5
             dpv = dcarry[0:6]
             for gi in groups:
                 k6 = fg.staged_group(spec, gi, buf, win[g], obj_tx, prim, slots)
-                hold("staged_group", k6,
-                     fg.staged_group_plain(spec, gi, buf, win[g], obj_tx, prim, slots))
+                hold(torch, stats, "staged_group", fold_names, k6,
+                     fg.staged_group_plain(spec, gi, buf, win[g], obj_tx, prim, slots), dtype)
                 dpv = dpv + k6[2]
             if has_singles:
                 k7 = fg.staged_singles(spec, buf, win[g], obj_tx, prim, slots)
-                hold("staged_singles", k7, fg.staged_singles_plain(spec, buf, win[g], obj_tx, prim))
+                hold(torch, stats, "staged_singles", fold_names, k7,
+                     fg.staged_singles_plain(spec, buf, win[g], obj_tx, prim), dtype)
                 dpv = dpv + k7[2]
             carry = torch.cat((dpv, dcarry[6:11]))
     return stats
@@ -320,6 +348,84 @@ def trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, stride
                 hit = ft._box_hit(aabb[info["chunk_off"] + c], p, v)
                 total += trees * int(hit.sum())
     return total / max(count, 1)
+
+
+def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective, optimize,
+                    device, train_config, reset, launches, label):
+    """The 8x8 array's training witnesses at 2**18 rays, float32 (the
+    example's two ``--optimize`` runs): the shared lenslet radius from 2.3
+    (30 steps), then 64 radii plus the detector plane (30 steps, seed 3),
+    under ``train_config``.  Each run's launch counts are zeroed just before
+    it and read just after.  Returns the final radius, the per-lenslet mean
+    |r - nominal| before and after, the host ms per step and the counts."""
+    span8 = TRAIN_N * MLA_PITCH * 0.95
+    rays8 = comp.GridOfRays(span8, span8).move_x(-1.0).generate_rays(
+        TRAIN_RAYS, device=device, dtype=torch.float32)
+    rays8 = rays8.replace(id=torch.arange(TRAIN_RAYS, dtype=torch.float32, device=device))
+    with fresh_ids():
+        det8 = float(mla_system(comp, pyrayt, TRAIN_N)[1].get_id())
+    blur8 = lenslet_blur_loss(torch, metrics, det8, TRAIN_N)
+    r_start = MLA_R * 1.15
+    objective = build_objective(lambda th: mla_system(comp, pyrayt, TRAIN_N, th["r"])[0], rays8,
+                                blur8, train_config)
+    out = {"launches": {}}
+    reset()
+    start = time.perf_counter()
+    theta, history = optimize(objective, {"r": torch.tensor(r_start, device=device)},
+                              steps=WIDE_TRAIN_STEPS, learning_rate=2e-2)
+    torch.cuda.synchronize()
+    out["shared_ms_per_step"] = (time.perf_counter() - start) / WIDE_TRAIN_STEPS * 1e3
+    out["launches"]["shared"] = launches()
+    out["r"] = float(theta["r"])
+    log(f"wide training ({label}), shared radius ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
+        f"{WIDE_TRAIN_STEPS} steps): r {r_start:.3f} -> {out['r']:.4f} mm (nominal {MLA_R}); "
+        f"blur {history[0]:.5f} -> {min(history):.5f} mm^2; {out['shared_ms_per_step']:.1f} "
+        f"ms/step (host clock); launches {json.dumps(out['launches']['shared'])}")
+
+    rng = np.random.default_rng(3)
+    radii0 = MLA_R * (1.0 + 0.15 * rng.standard_normal(TRAIN_N * TRAIN_N))
+    focus8 = pyrayt.lensmakers_equation(MLA_R, float("inf"), 1.5, MLA_THICKNESS)
+
+    def build_free(th):
+        lenslets = comp.microlens_array(th["radii"], MLA_THICKNESS, TRAIN_N, TRAIN_N, MLA_PITCH)
+        size = 2.0 * TRAIN_N * MLA_PITCH
+        return lenslets + [comp.baffle((size, size)).move_x(th["det_x"])]
+
+    theta0 = {"radii": torch.tensor(radii0, dtype=torch.float32, device=device),
+              "det_x": torch.tensor(focus8 * 1.05, dtype=torch.float32, device=device)}
+    with fresh_ids():
+        det_free = float(build_free(theta0)[-1].get_id())
+    objective = build_objective(build_free, rays8, lenslet_blur_loss(torch, metrics, det_free,
+                                                                     TRAIN_N), train_config)
+    reset()
+    start = time.perf_counter()
+    theta, history = optimize(objective, theta0, steps=WIDE_TRAIN_STEPS, learning_rate=2e-2)
+    torch.cuda.synchronize()
+    out["free_ms_per_step"] = (time.perf_counter() - start) / WIDE_TRAIN_STEPS * 1e3
+    out["launches"]["per_lenslet"] = launches()
+    out["err0"] = float(np.abs(radii0 - MLA_R).mean())
+    out["err1"] = float((theta["radii"].double() - MLA_R).abs().mean())
+    log(f"wide training ({label}), per lenslet ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
+        f"{WIDE_TRAIN_STEPS} steps, {TRAIN_N * TRAIN_N + 1} params, seed 3): blur "
+        f"{history[0]:.5f} -> {min(history):.5f} mm^2; mean |r - nominal| {out['err0']:.4f} -> "
+        f"{out['err1']:.4f} mm; detector x {focus8 * 1.05:.3f} -> {float(theta['det_x']):.3f} "
+        f"(nominal {focus8:.3f}); {out['free_ms_per_step']:.1f} ms/step (host clock); launches "
+        f"{json.dumps(out['launches']['per_lenslet'])}")
+    return out
+
+
+def fold_ops(torch, ft, fg, spec, inputs, records, masks):
+    """``(trees, ops)``: the group trees a ray evaluates per generation it
+    ran after the chunk skip (every 16th ray counted), and the wide fold's
+    operations per ray and generation run: the single trees' leaves, the
+    chunk-box tests, those trees' leaves and the winner's INTERACT."""
+    trees = trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, 16)
+    group_info = [info for kind, _, info in ft.wide_fold_plan(spec) if kind == "group"][0]
+    tree_ops = sum(LOCAL_RAY + INTERSECT[t] for t in group_info["types_pos"])
+    single_ops = sum(LOCAL_RAY + INTERSECT[spec.leaf_types[s]]
+                     for kind, _, info in ft.wide_fold_plan(spec) if kind == "single"
+                     for s in info["slots"])
+    return trees, single_ops + INTERACT + BOX_TEST * group_info["n_chunks"] + trees * tree_ops
 
 
 def log(*parts):
@@ -658,60 +764,12 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     # 12. training -------------------------------------------------------------
     phase_start = time.perf_counter()
     train_config = TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True)
-    span8 = TRAIN_N * MLA_PITCH * 0.95
-    rays8 = comp.GridOfRays(span8, span8).move_x(-1.0).generate_rays(
-        TRAIN_RAYS, device=device, dtype=torch.float32)
-    rays8 = rays8.replace(id=torch.arange(TRAIN_RAYS, dtype=torch.float32, device=device))
-    with fresh_ids():
-        det8 = float(mla_system(comp, pyrayt, TRAIN_N)[1].get_id())
-    blur8 = lenslet_blur_loss(torch, metrics, det8, TRAIN_N)
+    witness = train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective,
+                              optimize, device, train_config, reset, launches, "staged")
+    assert abs(witness["r"] - MLA_R) <= 0.1, witness
+    assert witness["err1"] < 0.12 and witness["err1"] < witness["err0"], witness
+    assert all(witness["launches"]["shared"].values()), witness
     r_start = MLA_R * 1.15
-    objective = build_objective(lambda th: mla_system(comp, pyrayt, TRAIN_N, th["r"])[0], rays8,
-                                blur8, train_config)
-    reset()
-    start = time.perf_counter()
-    theta, history = optimize(objective, {"r": torch.tensor(r_start, device=device)},
-                              steps=WIDE_TRAIN_STEPS, learning_rate=2e-2)
-    torch.cuda.synchronize()
-    shared_s = time.perf_counter() - start
-    r_opt = float(theta["r"])
-    log(f"wide training, shared radius ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
-        f"{WIDE_TRAIN_STEPS} steps): r {r_start:.3f} -> {r_opt:.4f} mm (nominal {MLA_R}); blur "
-        f"{history[0]:.5f} -> {min(history):.5f} mm^2; {shared_s / WIDE_TRAIN_STEPS * 1e3:.1f} "
-        f"ms/step (host clock); launches {json.dumps(launches())}")
-    assert abs(r_opt - MLA_R) <= 0.1, r_opt
-    assert all(launches().values()), launches()
-
-    rng = np.random.default_rng(3)
-    radii0 = MLA_R * (1.0 + 0.15 * rng.standard_normal(TRAIN_N * TRAIN_N))
-    focus8 = pyrayt.lensmakers_equation(MLA_R, float("inf"), 1.5, MLA_THICKNESS)
-
-    def build_free(th):
-        lenslets = comp.microlens_array(th["radii"], MLA_THICKNESS, TRAIN_N, TRAIN_N, MLA_PITCH)
-        size = 2.0 * TRAIN_N * MLA_PITCH
-        return lenslets + [comp.baffle((size, size)).move_x(th["det_x"])]
-
-    theta0 = {"radii": torch.tensor(radii0, dtype=torch.float32, device=device),
-              "det_x": torch.tensor(focus8 * 1.05, dtype=torch.float32, device=device)}
-    with fresh_ids():
-        det_free = float(build_free(theta0)[-1].get_id())
-    objective = build_objective(build_free, rays8, lenslet_blur_loss(torch, metrics, det_free,
-                                                                     TRAIN_N), train_config)
-    reset()
-    start = time.perf_counter()
-    theta, history = optimize(objective, theta0, steps=WIDE_TRAIN_STEPS, learning_rate=2e-2)
-    torch.cuda.synchronize()
-    free_s = time.perf_counter() - start
-    err0 = float(np.abs(radii0 - MLA_R).mean())
-    err1 = float((theta["radii"].double() - MLA_R).abs().mean())
-    log(f"wide training, per lenslet ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
-        f"{WIDE_TRAIN_STEPS} steps, {TRAIN_N * TRAIN_N + 1} params, seed 3): blur "
-        f"{history[0]:.5f} -> {min(history):.5f} mm^2; mean |r - nominal| {err0:.4f} -> "
-        f"{err1:.4f} mm; detector x {focus8 * 1.05:.3f} -> {float(theta['det_x']):.3f} (nominal "
-        f"{focus8:.3f}); {free_s / WIDE_TRAIN_STEPS * 1e3:.1f} ms/step (host clock); launches "
-        f"{json.dumps(launches())}")
-    assert err1 < 0.12 and err1 < err0, (err0, err1)
-    del rays8
     torch.cuda.empty_cache()
 
     # full width: the 16x16 array at 2**20 rays
@@ -774,11 +832,7 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
         staged_stats[tag] = stats
         log(f"wide staged kernels against their plain versions ({MLA_N}x{MLA_N}, {N_RAYS} rays, "
             f"{tag}, RmsSpotRadius loss mode and lenslet blur generic mode): " + json.dumps(stats))
-        share = 1.0 - MASK_SHARE64 if dtype == torch.float64 else DIFF_SHARE32
-        for key, s in stats.items():
-            assert s["finite"], (tag, key, s)
-            assert s["share_outside"] <= share if s["per_ray"] else s["values_outside"] == 0, \
-                (tag, key, s)
+        assert_held(stats, dtype, torch, tag)
         del rays
         torch.cuda.empty_cache()
     phase_seconds["wide_staged_compare"] = time.perf_counter() - phase_start
@@ -834,7 +888,7 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     assert identical, "two staged backward launches at full width differ"
     for k, v in saved.items():
         counters[k].launches = v
-    trees = trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, 16)
+    trees, k2_ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
     item = 4
     ran_total = int(ran.sum())
     # K2: every generation's records (zeros where a ray stopped), masks,
@@ -842,12 +896,7 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     tables = item * (22 * spec.n_leaves + 7 * glass.shape[0]) + 4 * slots.numel()
     k2_bytes = item * (15 * g_count * n + 2 * 13 * n) + g_count * n + tables
     k2_fold_bytes = k2_bytes + (item * 5 + 4) * g_count * n
-    tree_ops = sum(LOCAL_RAY + INTERSECT[t] for t in group_info["types_pos"])
-    single_ops = sum(LOCAL_RAY + INTERSECT[spec.leaf_types[s]]
-                     for kind, _, info in ft.wide_fold_plan(spec) if kind == "single"
-                     for s in info["slots"])
-    k2_ops = ran_total * (single_ops + INTERACT + BOX_TEST * group_info["n_chunks"]
-                          + trees * tree_ops)
+    k2_ops = ran_total * k2_ray_ops
     k2_bound = bound(k2_bytes, k2_ops)
     k2_fold_bound = bound(k2_fold_bytes, k2_ops)
     # K5 per step: per generation, 15 record and 5 fold rows of the rays
@@ -914,6 +963,158 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
               plain_step["k7"],
               bounds["k7"]),
     ]
+
+
+# the outputs of the wide backward, K8's and the staged chain's
+BWD_NAMES = ("d_objtx", "d_prim", "d_glass", "d_state0")
+# the 8x8 training witnesses the fused route must reproduce (the JAX
+# example's docstring; the staged route reaches 2.0276 and 0.0657)
+WITNESS_R, WITNESS_ERR, WITNESS_TOL = 2.028, 0.066, 0.01
+
+
+def k8_bytes(spec, inputs, records, masks, ran, generic):
+    """Bytes K8 must move on this run's data: 15 record rows per generation
+    a ray ran, 3 tilt rows per skip check, masks[0..G-2] (the loss mode
+    also the mask of each generation run), 11 state0 rows in and 13
+    d_state0 rows out, the scene tables; the generic mode adds 15 d_records
+    rows per generation run and 11 d_fstate rows."""
+    state0, _, _, glass, slots, aabb = inputs
+    item = state0.element_size()
+    g_count, n = masks.shape
+    ran_total = int(ran.sum())
+    skip_checks = int((masks[:-1] & ~ran[1:]).sum())
+    tables = item * (22 * spec.n_leaves + 7 * glass.shape[0] + 6 * aabb.shape[0]) + 4 * slots.numel()
+    loss = item * (15 * ran_total + 3 * skip_checks + 24 * n) + (g_count - 1) * n + ran_total + tables
+    return loss - ran_total + item * (15 * ran_total + 11 * n) if generic else loss
+
+
+def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, fresh_ids,
+                     compile_scene, build_objective, optimize, device, phase_seconds, np):
+    """Phase 14 (module docstring); returns K8's entry of the kernels line."""
+    config = TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True)
+    phase_start = time.perf_counter()
+    stats, times, bounds = {}, {}, {}
+    for n_side in (TRAIN_N, MLA_N):
+        span = n_side * MLA_PITCH * 1.05  # bench.py:1258
+        grid = comp.GridOfRays(span, span).move_x(-1.0)
+        for dtype in (torch.float64, torch.float32):
+            tag = f"{n_side}x{n_side}_{str(dtype).replace('torch.', '')}"
+            with fresh_ids():
+                system, detector, _ = mla_system(comp, pyrayt, n_side)
+                scene = compile_scene(system, device=device, dtype=dtype)
+            det_id = float(detector.get_id())
+            spec = scene.spec
+            rays = grid.generate_rays(N_RAYS, device=device, dtype=dtype)
+            inputs = ft.wide_kernel_inputs(spec, scene.params, rays)
+            state0, obj_tx, prim, glass, slots, _ = inputs
+            records, masks, fstate, fold5, win = ft.fused_trace_wide(spec, config, *inputs,
+                                                                     save_fold=True)
+            plan = fg.loss_plan(metrics.RmsSpotRadius(det_id))
+            scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
+            # the lenslet blur's record cotangent, as autograd hands it to the Function
+            rec_var = records.detach().clone().requires_grad_(True)
+            (d_records,) = torch.autograd.grad(lenslet_blur_loss(torch, metrics, det_id, n_side)(
+                engine.TraceResult(rec_var, masks, ft.rays_from_state(fstate),
+                                   masks.any(dim=1).sum())), rec_var)
+            modes = {"rms_loss_mode": dict(scal=scal, plan=plan),
+                     "blur_generic": dict(d_records=d_records.contiguous(),
+                                          d_fstate=torch.zeros_like(fstate))}
+            args = (spec, config, *inputs, records, masks)
+            staged_args = (spec, config, state0, obj_tx, prim, glass, slots, records, masks,
+                           fold5, win)
+            held, identical = {}, True
+            for kw in modes.values():
+                k8 = fg.fused_bwd_wide(*args, **kw)
+                again = fg.fused_bwd_wide(*args, **kw)
+                identical = identical and all(torch.equal(a, b) for a, b in zip(k8, again))
+                hold(torch, held, "fused_bwd_wide", BWD_NAMES, k8,
+                     fg.fused_bwd_wide_plain(*args, **kw), dtype)
+                if dtype == torch.float64:
+                    hold(torch, held, "against_staged", BWD_NAMES, k8,
+                         fg.staged_bwd(*staged_args, **kw), dtype)
+            stats[tag] = held
+            log(f"wide fused backward against its plain version{' and the staged backward' if dtype == torch.float64 else ''} "
+                f"({tag}, {spec.n_leaves} leaves, {N_RAYS} rays, RmsSpotRadius loss mode and "
+                f"lenslet blur generic mode): two launches bit-identical: {identical}; "
+                + json.dumps(held))
+            assert identical, tag
+            assert_held(held, dtype, torch, tag)
+            if dtype == torch.float32:
+                t = {}
+                for label, kw in modes.items():
+                    t[f"k8_{label}_ms"] = cuda_ms(torch, lambda: fg.fused_bwd_wide(*args, **kw))
+                    t[f"staged_{label}_ms"] = cuda_ms(
+                        torch, lambda: fg.staged_bwd(*staged_args, **kw))
+                    t[f"plain_{label}_ms"] = cuda_ms(
+                        torch, lambda: fg.fused_bwd_wide_plain(*args, **kw), repeats=1, warmup=0)
+                # where K8's time goes: device time per kernel it launches
+                from torch.profiler import ProfilerActivity, profile
+
+                kw = modes["rms_loss_mode"]
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PROFILED_STEPS):
+                        fg.fused_bwd_wide(*args, **kw)
+                    torch.cuda.synchronize()
+                t["k8_device_ms_by_kernel"] = {
+                    e.key[:48]: device_us(e) / PROFILED_STEPS / 1e3 for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0}
+                times[tag] = t
+                ran = fg.generations_ran(records, masks)
+                trees, ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
+                winners = int((win >= 0).sum())
+                ops = int(ran.sum()) * (ray_ops + TAIL_ADJOINT) + winners * TREE_ADJOINT
+                bounds[tag] = {}
+                for label, generic in (("rms_loss_mode", False), ("blur_generic", True)):
+                    n_bytes = k8_bytes(spec, inputs, records, masks, ran, generic)
+                    bnd = bound(n_bytes, ops)
+                    bounds[tag][label] = {"bytes": n_bytes, "ops": ops, "ms": bnd[0], "by": bnd[1]}
+                log(f"wide fused times ({tag}, {int(ran.sum())} ray-generations run, {winners} "
+                    f"with a hit, {trees:.2f} group trees per ray and generation, median): "
+                    + json.dumps(t) + "; bounds " + json.dumps(bounds[tag]) + f" on {card_line()}")
+            del scene, rays, inputs, records, masks, fstate, fold5, win, d_records, modes
+            torch.cuda.empty_cache()
+    phase_seconds["wide_fused_compare_and_times"] = time.perf_counter() - phase_start
+
+    # the main path of this slice: training through K2 + K8
+    phase_start = time.perf_counter()
+    counters = {"fused_trace_wide": ft.fused_trace_wide, "fused_bwd_wide": fg.fused_bwd_wide,
+                "staged_tail": fg.staged_tail, "staged_group": fg.staged_group,
+                "staged_singles": fg.staged_singles}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def launches():
+        return {name: c.launches for name, c in counters.items()}
+
+    witness = train_witnesses(
+        torch, np, pyrayt, comp, metrics, fresh_ids, build_objective, optimize, device,
+        TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True, wide_grad="fused"),
+        reset, launches, "fused")
+    runs = witness["launches"]
+    main_launches = {k: runs["shared"][k] + runs["per_lenslet"][k] for k in counters}
+    log("wide fused training: " + json.dumps({k: v for k, v in witness.items()}))
+    assert main_launches["fused_trace_wide"] >= 2 * WIDE_TRAIN_STEPS, main_launches
+    assert main_launches["fused_bwd_wide"] >= 2 * WIDE_TRAIN_STEPS, main_launches
+    assert not any(main_launches[k] for k in ("staged_tail", "staged_group", "staged_singles")), \
+        main_launches
+    assert abs(witness["r"] - WITNESS_R) <= WITNESS_TOL, witness
+    assert abs(witness["err1"] - WITNESS_ERR) <= WITNESS_TOL, witness
+    phase_seconds["wide_fused_training"] = time.perf_counter() - phase_start
+
+    full = f"{MLA_N}x{MLA_N}_float32"
+    main_bound = bounds[full]["rms_loss_mode"]
+    return {"name": "fused_bwd_wide", "route": "cuda",
+            "source": "pyrayt_tpu_torch/csrc/wide_fused_grad.cu",
+            "replaces": "pyrayt_tpu/ops/fused_grad.py:294",
+            "launches": main_launches["fused_bwd_wide"],
+            "max_abs_err": max(s["max_abs_err"] for key, s in stats[full].items()
+                               if key.startswith("fused_bwd_wide.")),
+            "ms": times[full]["k8_rms_loss_mode_ms"],
+            "plain_ms": times[full]["plain_rms_loss_mode_ms"],
+            "bound_ms": main_bound["ms"], "bound_by": main_bound["by"], "library_ms": None}
 
 
 def main() -> int:
@@ -1309,6 +1510,9 @@ def main() -> int:
     wide_kernels = wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceConfig,
                                fresh_ids, compile_scene, build_objective, optimize, device,
                                phase_seconds)
+    wide_kernels.append(wide_fused_phase(
+        torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, fresh_ids, compile_scene,
+        build_objective, optimize, device, phase_seconds, np))
     log("phase seconds:", json.dumps(phase_seconds))
 
     def k_err(key):

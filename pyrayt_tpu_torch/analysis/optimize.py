@@ -4,7 +4,8 @@ Counterpart of ``pyrayt_tpu.analysis.optimize``: the objective (rebuild the
 scene from parameters, trace, metric) is one differentiable program, so
 each optimizer step costs one forward and one backward trace.  On the card
 that is K1 then K3 (a recognized loss descriptor) or K4 (any other loss);
-for a wide scene K2 then the staged backward K5-K7.
+for a wide scene K2 then the staged backward K5-K7, or K8 with
+``TraceConfig(wide_grad="fused")``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def build_objective(
     rays with a supported scene run the kernels, the loss-fused K3 for a
     recognized descriptor (``RmsSpotRadius``, ``FocusError``,
     ``SoftFocusError``) and the generic K4 otherwise (a wide scene: K2,
-    then K5 in its loss or generic mode, K6 and K7); ``use_fused=False``,
+    then K5 in its loss or generic mode, K6 and K7, or with
+    ``wide_grad="fused"`` K8 in either mode); ``use_fused=False``,
     custom Python materials and CPU rays differentiate the plain engine
     with autograd.  ``config`` is forced to ``fixed_loop=True``.
     """

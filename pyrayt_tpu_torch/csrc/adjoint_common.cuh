@@ -1,9 +1,10 @@
 // Adjoint device code shared by the narrow backward kernels (fused_grad.cu,
-// K3/K4) and the staged wide backward kernels (wide_grad.cu, K5-K7): the
-// loss plans' record cotangents, the adjoint of trace_common.cuh's step_tail
-// (material, death rules, record, push-off), the adjoint of the world normal
-// and of a hit distance (the derivative of the formula its hit code names),
-// and the fixed-order reduce of per-block partial sums.
+// K3/K4) and the wide backward kernels (wide_grad.cu K5-K7,
+// wide_fused_grad.cu K8): the loss plans' record cotangents, the adjoint of
+// trace_common.cuh's step_tail (material, death rules, record, push-off),
+// the adjoint of the world normal and of a hit distance (the derivative of
+// the formula its hit code names), and the fixed-order reduce of per-block
+// partial sums.
 //
 // CUDA has no autodiff: every adjoint here is written by hand against the
 // plain versions' autograd (ops/fused_grad.py), which are the oracles.

@@ -1,8 +1,9 @@
 // Device code shared by the forward kernels (fused_trace.cu K1, wide_trace.cu
-// K2) and the backward kernels (fused_grad.cu K3/K4, wide_grad.cu K5-K7): the
-// scene program and its interpreter, the five primitive intersectors,
-// interval and comparator-network CSG, the nearest positive hit, the world
-// normal, and the material step with its death rules and record.  Every
+// K2) and the backward kernels (fused_grad.cu K3/K4, wide_grad.cu K5-K7,
+// wide_fused_grad.cu K8): the scene program and its interpreter, the five
+// primitive intersectors, interval and comparator-network CSG, the nearest
+// positive hit, the world normal, and the material step with its death
+// rules and record.  Every
 // kernel runs exactly this code, so a backward's forward recompute finds the
 // same hit as the forward did.
 //

@@ -1,7 +1,7 @@
 // Device code shared by the wide forward kernel (wide_trace.cu, K2) and the
-// staged wide backward kernels (wide_grad.cu, K5-K7): the wide scene
-// program's views, its shared-memory copy, the per-ray chunk-box test and
-// the wide nearest-hit fold.
+// wide backward kernels (wide_grad.cu K5-K7, wide_fused_grad.cu K8): the
+// wide scene program's views, its shared-memory copy, the per-ray chunk-box
+// test and the wide nearest-hit fold.
 //
 // The wide program (ops/fused_trace.py:wide_program) is the narrow scene
 // program's instruction stream in wide fold order, where a GROUP

@@ -29,10 +29,10 @@
 // only selects values), so each ray's table cotangent is 18 values (rows
 // 0-2 of that leaf's transform, its 6 params) for one row of the launch's
 // reduce table (group: sorted tree t's leaf j is row t L + j; singles: the
-// compact single leaf).  Deterministic sums without float atomics: per
-// reduce row and chunk of rays one block scans the rays' row keys in ray
-// order and sums the matching rays' values in float64 (reduce_rows), and a
-// last kernel adds each row's chunks in order (finish_rows).  Two launches
+// compact single leaf).  Deterministic sums without float atomics
+// (row_reduce.cuh): per reduce row and chunk of rays one block scans the
+// rays' row keys in ray order and sums the matching rays' values in
+// float64, and a last kernel adds each row's chunks in order.  Two launches
 // give bit-identical gradients.  The scan reads every key once per row
 // (R n keys: 512 x 2^20 for the 16x16 array, L2-resident); a counting sort
 // by key would make it O(n).  A launch none of whose rays won one of its
@@ -44,7 +44,7 @@
 // ray, and the reduce reads the keys R times.  Per ray the arithmetic is a
 // few hundred operations, so bytes bind.
 
-#include "adjoint_common.cuh"
+#include "row_reduce.cuh"
 #include "wide_common.cuh"
 
 namespace {
@@ -326,90 +326,6 @@ __global__ void __launch_bounds__(kThreads) staged_fold_kernel(
   for (int k = 0; k < kGeo; ++k) vals[k * n + i] = geo[k];
 }
 
-// Deterministic table sums: block (r, c) sums, in float64 and ray order,
-// the values of the rays of chunk c whose key is reduce row r, and reduces
-// its threads in a fixed tree; finish_rows then adds the chunks of each row
-// in order into rows 0-2 of d_objtx and d_prim of slot reduce_slots[r].  The
-// chunks spread a row over many blocks: the singles' launch has one row per
-// single leaf (the detector alone, in a microlens array).  A launch whose
-// rays won none of its trees (flag_winners leaves any_winner 0) skips the
-// key scan: its blocks write zero sums and return.
-constexpr int kRowThreads = 256;
-constexpr int kFlagBlocks = 264;
-constexpr int kTargetBlocks = 2048;
-constexpr long long kMinChunk = 4096;
-
-int fold_chunks(long long n, int n_rows) {
-  const long long by_rays = (n + kMinChunk - 1) / kMinChunk;
-  const long long by_rows = (kTargetBlocks + (n_rows > 0 ? n_rows : 1) - 1) / (n_rows > 0 ? n_rows : 1);
-  const long long c = by_rays < by_rows ? by_rays : by_rows;
-  return static_cast<int>(c > 1 ? c : 1);
-}
-
-// any_winner = 1 where some ray's key names a reduce row (zeroed before)
-__global__ void __launch_bounds__(kRowThreads) flag_winners(const int* __restrict__ keys,
-                                                            long long n, int* any_winner) {
-  bool won = false;
-  for (long long i = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kRowThreads) {
-    won = won || keys[i] >= 0;
-  }
-  if (__syncthreads_or(won) && threadIdx.x == 0) atomicOr(any_winner, 1);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads) reduce_rows(
-    const int* __restrict__ keys, const T* __restrict__ vals, long long n, long long chunk,
-    const int* __restrict__ any_winner, double* __restrict__ partials) {
-  __shared__ double red[kGeo][kRowThreads];
-  const int r = blockIdx.x;
-  if (*any_winner == 0) {
-    if (threadIdx.x < kGeo) {
-      partials[(static_cast<long long>(r) * gridDim.y + blockIdx.y) * kGeo + threadIdx.x] = 0.0;
-    }
-    return;
-  }
-  const long long i0 = static_cast<long long>(blockIdx.y) * chunk;
-  const long long i1 = i0 + chunk < n ? i0 + chunk : n;
-  double acc[kGeo];
-  for (int k = 0; k < kGeo; ++k) acc[k] = 0.0;
-  for (long long i = i0 + threadIdx.x; i < i1; i += kRowThreads) {
-    if (keys[i] == r) {
-      for (int k = 0; k < kGeo; ++k) acc[k] += static_cast<double>(vals[k * n + i]);
-    }
-  }
-  for (int k = 0; k < kGeo; ++k) red[k][threadIdx.x] = acc[k];
-  __syncthreads();
-  for (int half = kRowThreads / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) {
-      for (int k = 0; k < kGeo; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + half];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < kGeo) {
-    partials[(static_cast<long long>(r) * gridDim.y + blockIdx.y) * kGeo + threadIdx.x] =
-        red[threadIdx.x][0];
-  }
-}
-
-template <typename T>
-__global__ void finish_rows(const double* __restrict__ partials, int n_chunks,
-                            const int* __restrict__ reduce_slots, T* __restrict__ d_objtx,
-                            T* __restrict__ d_prim) {
-  const int r = blockIdx.x, k = threadIdx.x;
-  if (k >= kGeo) return;
-  double sum = 0.0;
-  for (int c = 0; c < n_chunks; ++c) {
-    sum += partials[(static_cast<long long>(r) * n_chunks + c) * kGeo + k];
-  }
-  const int s = reduce_slots[r];
-  if (k < 12) {
-    d_objtx[16 * s + k] = static_cast<T>(sum);
-  } else {
-    d_prim[6 * s + k - 12] = static_cast<T>(sum);
-  }
-}
-
 template <typename T>
 int launch_fold(long long n, const void* buf, const void* win, const void* objtx,
                 const void* prim, const void* program, int prefix_len, int n_single_leaves,
@@ -436,27 +352,9 @@ int launch_fold(long long n, const void* buf, const void* win, const void* objtx
       static_cast<const int*>(slots), group, static_cast<T*>(dpv), static_cast<int*>(keys),
       static_cast<T*>(vals));
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_rows == 0) return static_cast<int>(err);
-  err = cudaMemsetAsync(any_winner, 0, sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  long long flag_blocks = (n + kRowThreads - 1) / kRowThreads;
-  if (flag_blocks > kFlagBlocks) flag_blocks = kFlagBlocks;
-  flag_winners<<<static_cast<unsigned>(flag_blocks), kRowThreads, 0, s>>>(
-      static_cast<const int*>(keys), n, static_cast<int*>(any_winner));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = fold_chunks(n, n_rows);
-  const long long chunk = (n + n_chunks - 1) / n_chunks;
-  reduce_rows<T><<<dim3(static_cast<unsigned>(n_rows), static_cast<unsigned>(n_chunks)),
-                   kRowThreads, 0, s>>>(static_cast<const int*>(keys), static_cast<const T*>(vals),
-                                        n, chunk, static_cast<const int*>(any_winner),
-                                        static_cast<double*>(partials));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<T><<<static_cast<unsigned>(n_rows), 32, 0, s>>>(
-      static_cast<const double*>(partials), n_chunks, static_cast<const int*>(reduce_slots),
-      static_cast<T*>(d_objtx), static_cast<T*>(d_prim));
-  return static_cast<int>(cudaGetLastError());
+  return launch_row_reduce<T>(keys, vals, n, n_rows, reduce_slots, partials, any_winner, d_objtx,
+                              d_prim, s);
 }
 
 }  // namespace

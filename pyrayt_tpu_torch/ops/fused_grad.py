@@ -1,7 +1,7 @@
 """The backward kernels on CUDA, their wrappers, their plain PyTorch
 versions and the autograd Functions around them: the narrow K3 (loss-fused)
-and K4 (generic), and the staged wide backward K5 (tail), K6 (group) and
-K7 (singles).
+and K4 (generic), the staged wide backward K5 (tail), K6 (group) and K7
+(singles), and the monolithic wide backward K8.
 
 The kernels (``csrc/fused_grad.cu``) replace the Pallas kernel built by
 ``pyrayt_tpu/ops/fused_grad.py:_make_bwd_kernel`` in its two modes and run
@@ -46,8 +46,14 @@ record cotangents through the step after the fold, and K6 (per group) and
 K7 (the single trees) map the hit distance's and normal's cotangents into
 each ray's winning tree.  The JAX package's 256-leaf chunks and 8-tree
 subchunks worked around the TPU compiler's limits and have no counterpart.
-``wide_grad="fused"``, the monolithic wide backward (kernel K8), is not
-ported and raises.  The wide Functions keep the contract above.
+
+``TraceConfig(wide_grad="fused")`` takes the monolithic wide backward
+instead (:func:`fused_bwd_wide`, ``csrc/wide_fused_grad.cu``), the
+counterpart of the JAX package's ``_make_bwd_kernel_wide``: K2 without
+``save_fold`` forward, then one launch that recomputes each generation's
+fold per ray and runs the tail's and the winning tree's adjoints in one
+thread.  It gives the staged backward's gradients up to rounding.  The wide
+Functions keep the contract above.
 """
 
 from __future__ import annotations
@@ -78,6 +84,8 @@ __all__ = [
     "fused_bwd_plain",
     "fused_bwd_loss",
     "fused_bwd_loss_plain",
+    "fused_bwd_wide",
+    "fused_bwd_wide_plain",
     "build_fused_value_and_grad_fn",
     "build_fused_vjp_trace_fn",
 ]
@@ -270,21 +278,25 @@ def loss_plan(loss):
 
 def wide_grad_mode(spec: SceneSpec, config: TraceConfig) -> str:
     """Backward-path selection: ``"narrow"`` (K3/K4) for scenes of at most
-    32 leaves, ``"staged"`` (K5-K7) for wide scenes with ``wide_grad`` None
-    or ``"staged"``.  ``"fused"``, the JAX package's monolithic wide
-    backward, is kernel K8, not ported yet: it raises NotImplementedError
-    rather than run another path."""
+    32 leaves; for wide scenes ``"staged"`` (K5-K7) with ``wide_grad`` None
+    or ``"staged"``, as in the JAX package, and ``"fused"`` (K8) with
+    ``wide_grad="fused"``.  Unknown modes raise ValueError.
+
+    The JAX package caps ``"fused"`` at 300 leaves, where its monolithic
+    kernel crashed the TPU compiler.  K8 has no cap of its own: like K2 it
+    keeps only the program, the single trees' tables (at most 32 leaves,
+    :func:`~pyrayt_tpu_torch.ops.fused_trace.supports_fused_wide`) and the
+    glass rows in shared memory, plus 7.8 KB of staging, and reads the
+    groups' tables from global memory.  What grows is device memory, 18
+    values per ray and generation for its table sums, and the time of their
+    key scan, leaves x generations x rays."""
     if ft.supports_fused(spec):
         return "narrow"
     mode = config.wide_grad
     if mode is None or mode == "staged":
         return "staged"
     if mode == "fused":
-        raise NotImplementedError(
-            "wide_grad='fused' is the monolithic wide backward, kernel K8, which the port "
-            "has not reached yet (ROADMAP.md, TPU kernels to port: K8); use wide_grad=None "
-            "or 'staged'"
-        )
+        return "fused"
     raise ValueError(f"unknown wide_grad mode {mode!r}")
 
 
@@ -962,19 +974,16 @@ def staged_singles(spec, buf, win, obj_tx, prim, slots):
 staged_singles.launches = 0
 
 
-def staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold5, win,
-               d_records=None, d_fstate=None, scal=None, plan=None):
-    """The staged wide backward: ``(d_objtx (S, 16), d_prim (S, 6), d_glass
-    (M, 7), d_state0 (13, n))`` of a K2 trace (``records``, ``masks``,
-    ``fold5``, ``win`` from :func:`~pyrayt_tpu_torch.ops.fused_trace.fused_trace_wide`
-    with ``save_fold``), given the record and final-state cotangents
-    (``d_records``, ``d_fstate``) or a loss plan and its scalar row.
-
-    Per generation that any ray ran, last first: K5 maps the carried cotangent and
-    the record cotangent through the tail; K6 per group and K7 for the
-    singles map the hit distance's and normal's cotangents into the
-    winning trees' tables and the input rays; the carried cotangent of
-    generation g is ``dcarry[0:6] + sum(dpv), dcarry[6:11]``."""
+def _reverse_chain(spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold_of,
+                   kernels, d_records, d_fstate, scal, plan):
+    """The wide backward's reverse sweep over the generations any ray ran,
+    last first: ``tail`` (K5's signature) maps the carried and record
+    cotangents through the step after the fold, whose ``(fold5, win)`` of
+    generation g is ``fold_of(g)``; ``group`` (K6's) per group and
+    ``singles`` (K7's) map the hit distance's and normal's cotangents into
+    the winning trees; the carried cotangent of generation g is
+    ``dcarry[0:6] + sum(dpv), dcarry[6:11]``."""
+    tail, group, singles = kernels
     n, g_limit = state0.shape[1], config.generation_limit
     d_obj = torch.zeros_like(obj_tx)
     d_prim = torch.zeros_like(prim)
@@ -990,15 +999,16 @@ def staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, records, masks,
     for g in reversed(range(g_limit)):
         if not ran_any[g]:
             continue
-        buf, dcarry, dgl = staged_tail(
-            spec, config, state0, records[g], masks[g], masks[g - 1] if g else None, fold5[g],
+        fold5, win = fold_of(g)
+        buf, dcarry, dgl = tail(
+            spec, config, state0, records[g], masks[g], masks[g - 1] if g else None, fold5,
             glass, carry, None if plan is not None else d_records[g], scal, plan)
         d_glass += dgl
         dpv = dcarry[0:6]
-        calls = [lambda gi=gi: staged_group(spec, gi, buf, win[g], obj_tx, prim, slots)
+        calls = [lambda gi=gi: group(spec, gi, buf, win, obj_tx, prim, slots)
                  for gi in plan_groups]
         if has_singles:
-            calls.append(lambda: staged_singles(spec, buf, win[g], obj_tx, prim, slots))
+            calls.append(lambda: singles(spec, buf, win, obj_tx, prim, slots))
         for call in calls:
             do, dp, dv = call()
             d_obj += do
@@ -1008,6 +1018,181 @@ def staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, records, masks,
     zero = torch.zeros_like(carry[:1])
     d_state0 = torch.cat((carry[0:3], zero, carry[3:6], zero, carry[6:11]))
     return d_obj, d_prim, d_glass, d_state0
+
+
+def staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold5, win,
+               d_records=None, d_fstate=None, scal=None, plan=None):
+    """The staged wide backward: ``(d_objtx (S, 16), d_prim (S, 6), d_glass
+    (M, 7), d_state0 (13, n))`` of a K2 trace (``records``, ``masks``,
+    ``fold5``, ``win`` from :func:`~pyrayt_tpu_torch.ops.fused_trace.fused_trace_wide`
+    with ``save_fold``), given the record and final-state cotangents
+    (``d_records``, ``d_fstate``) or a loss plan and its scalar row.
+
+    Per generation that any ray ran, last first: K5 maps the carried cotangent and
+    the record cotangent through the tail; K6 per group and K7 for the
+    singles map the hit distance's and normal's cotangents into the
+    winning trees' tables and the input rays; the carried cotangent of
+    generation g is ``dcarry[0:6] + sum(dpv), dcarry[6:11]``."""
+    return _reverse_chain(spec, config, state0, obj_tx, prim, glass, slots, records, masks,
+                          lambda g: (fold5[g], win[g]), (staged_tail, staged_group, staged_singles),
+                          d_records, d_fstate, scal, plan)
+
+
+# ---------------------------------------------------------------------------
+# the monolithic wide backward (K8)
+# ---------------------------------------------------------------------------
+
+
+def _recomputed_fold(spec, state0, records, masks, obj_tx, prim, slots, aabb, g):
+    """Generation g's ``(fold5 (5, n), win (n,))`` recomputed from its input
+    state, as K2 with ``save_fold`` writes them: zero and -1 for the rays
+    that did not run it."""
+    x, ran = _wide_input_state(state0, records[g], masks[g - 1] if g else None)
+    n = x.shape[1]
+    fold5 = torch.zeros((5, n), dtype=x.dtype, device=x.device)
+    win = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    idx = ran.nonzero().squeeze(1)
+    if idx.numel():
+        xi = x[:, idx]
+        best, best_n, best_mat, _, win_i, _ = ft.wide_fold_plain(
+            spec, obj_tx.reshape(-1, 4, 4), prim, slots, aabb, xi[0:4], xi[4:8])
+        fold5[:, idx] = torch.cat((best[None], best_n[:3], best_mat[None]))
+        win[idx] = win_i
+    return fold5, win
+
+
+def fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                         d_records=None, d_fstate=None, scal=None, plan=None):
+    """Plain PyTorch version of :func:`fused_bwd_wide` (same signature and
+    outputs): the staged chain's plain versions (:func:`staged_tail_plain`,
+    :func:`staged_group_plain`, :func:`staged_singles_plain`) on a fold
+    recomputed per generation (:func:`~pyrayt_tpu_torch.ops.fused_trace.wide_fold_plain`)
+    instead of one saved by the forward."""
+    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                      d_records, d_fstate, scal, plan)
+
+    def singles(spec, buf, win, obj_tx, prim, slots):
+        return staged_singles_plain(spec, buf, win, obj_tx, prim)
+
+    return _reverse_chain(
+        spec, config, state0, obj_tx, prim, glass, slots, records, masks,
+        lambda g: _recomputed_fold(spec, state0, records, masks, obj_tx, prim, slots, aabb, g),
+        (staged_tail_plain, staged_group_plain, singles), d_records, d_fstate, scal, plan)
+
+
+def _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                      d_records, d_fstate, scal, plan):
+    if not ft.supports_fused_wide(spec):
+        raise ValueError(
+            "scene has non-packed materials or no batchable tree groups; use the plain engine")
+    ft._check_wide(spec, state0, obj_tx, prim, glass, slots, aabb)
+    if (plan is None) == (d_records is None) or (d_records is None) != (d_fstate is None):
+        raise ValueError("give d_records and d_fstate (generic mode) or scal and plan (loss mode)")
+    _check(spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate,
+           scal if plan is not None else None)
+
+
+@lru_cache(maxsize=None)
+def _wide_fused_library():
+    lib = ctypes.CDLL(ft.build_kernels()["wide_fused_grad"][0])
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    args = (
+        [p, ctypes.c_longlong, i]  # state0, n, generations
+        + [p] * 4 + [i] * 3  # objtx, prim, glass, program; prefix_len, n_single_leaves, n_glass
+        + [p] * 6  # slots, aabb, records, masks, d_records, d_fstate
+        + [i, p, i]  # plan, scal, n_scal
+        + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
+        + [p] * 5 + [i]  # d_state0, keys, vals, glass partials, reduce slots; rows
+        + [p] * 6  # row partials, any-winner flag, d_objtx, d_prim, d_glass, stream
+    )
+    for name in ("pyrayt_wide_fused_bwd_f32", "pyrayt_wide_fused_bwd_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.pyrayt_wide_fused_chunks.argtypes = [ctypes.c_longlong, i]
+    lib.pyrayt_wide_fused_chunks.restype = i
+    lib.pyrayt_wide_fused_block_threads.argtypes = []
+    lib.pyrayt_wide_fused_block_threads.restype = i
+    lib.pyrayt_wide_fused_error_string.argtypes = [i]
+    lib.pyrayt_wide_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@lru_cache(maxsize=64)
+def _all_slots(n_leaves, device):
+    return torch.arange(n_leaves, dtype=torch.int32, device=device)
+
+
+def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                       d_records, d_fstate, scal, plan):
+    """Launch K8 and its reduces; returns its four outputs."""
+    lib = _wide_fused_library()
+    device, dtype = state0.device, state0.dtype
+    n, g, s_count, m = state0.shape[1], config.generation_limit, spec.n_leaves, glass.shape[0]
+    kw = dict(dtype=dtype, device=device)
+    d_state0 = torch.empty_like(state0)
+    d_obj = torch.zeros((s_count, 16), **kw)
+    d_prim = torch.zeros((s_count, 6), **kw)
+    d_glass = torch.zeros((m, matl.N_GLASS_COEFFS), **kw)
+    if n == 0:
+        return d_obj, d_prim, d_glass, d_state0
+    keys = torch.empty((g, n), dtype=torch.int32, device=device)
+    vals = torch.empty((18, g, n), **kw)
+    blocks = -(-n // lib.pyrayt_wide_fused_block_threads())
+    glass_partials = torch.empty((max(1, m * matl.N_GLASS_COEFFS * g * blocks),),
+                                 dtype=torch.float64, device=device)
+    row_partials = torch.empty((s_count * lib.pyrayt_wide_fused_chunks(g * n, s_count) * 18,),
+                               dtype=torch.float64, device=device)
+    any_winner = torch.empty((1,), dtype=torch.int32, device=device)
+    program = ft.device_wide_program(spec, device)
+    fn = lib.pyrayt_wide_fused_bwd_f32 if dtype == torch.float32 else lib.pyrayt_wide_fused_bwd_f64
+    with torch.cuda.device(device):
+        err = fn(
+            state0.data_ptr(), n, g, obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(),
+            program.data_ptr(), *ft.wide_program_sizes(spec), m, slots.data_ptr(), aabb.data_ptr(),
+            records.data_ptr(), masks.data_ptr(),
+            d_records.data_ptr() if plan is None else None,
+            d_fstate.data_ptr() if plan is None else None,
+            -1 if plan is None else plan.kind, scal.data_ptr() if plan is not None else None,
+            0 if plan is None else scal.shape[0],
+            config.ray_offset, config.world_index, config.intensity_threshold,
+            int(config.apply_intensity_threshold),
+            d_state0.data_ptr(), keys.data_ptr(), vals.data_ptr(), glass_partials.data_ptr(),
+            _all_slots(s_count, device).data_ptr(), s_count, row_partials.data_ptr(),
+            any_winner.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(), d_glass.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        message = lib.pyrayt_wide_fused_error_string(err).decode()
+        raise RuntimeError(f"fused_bwd_wide kernel launch failed: {message}")
+    return d_obj, d_prim, d_glass, d_state0
+
+
+def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                   d_records=None, d_fstate=None, scal=None, plan=None):
+    """K8, the monolithic wide backward: ``(d_objtx (S, 16), d_prim (S, 6),
+    d_glass (M, 7), d_state0 (13, n))`` of a K2 trace (``records``,
+    ``masks`` from :func:`~pyrayt_tpu_torch.ops.fused_trace.fused_trace_wide`
+    on the same inputs, ``slots`` and ``aabb`` its runtime tables), given
+    the record and final-state cotangents (``d_records`` (G, 15, n),
+    ``d_fstate`` (13, n)) or a loss plan and its scalar row (``plan``,
+    ``scal``).  It needs no saved fold: per generation each ray recomputes
+    it.  The same gradients as :func:`staged_bwd`, up to rounding.  CUDA
+    tensors launch the kernel (counted in ``fused_bwd_wide.launches``); CPU
+    tensors run :func:`fused_bwd_wide_plain`."""
+    if state0.device.type == "cpu":
+        return fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb,
+                                    records, masks, d_records, d_fstate, scal, plan)
+    _device_check(state0)
+    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+                      d_records, d_fstate, scal, plan)
+    out = _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, records,
+                             masks, d_records, d_fstate, scal, plan)
+    fused_bwd_wide.launches += 1
+    return out
+
+
+fused_bwd_wide.launches = 0
 
 
 class _WideLoss(torch.autograd.Function):
@@ -1061,6 +1246,56 @@ class _WideTrace(torch.autograd.Function):
         return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
 
 
+class _WideFusedLoss(torch.autograd.Function):
+    """loss = plan.value(plan.scalars(K2 trace)); backward K8."""
+
+    @staticmethod
+    def forward(ctx, world, prim, glass, state0, spec, config, plan):
+        obj_tx = _obj_tx(world, spec.n_leaves)
+        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        records, masks, _ = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass, slots,
+                                                aabb)
+        scal = plan.scalars(records, masks)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, aabb, records, masks,
+                              scal)
+        ctx.args = (spec, config, plan)
+        return plan.value(scal).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        world, prim, glass, state0, obj_tx, slots, aabb, records, masks, scal = ctx.saved_tensors
+        spec, config, plan = ctx.args
+        d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+            scal=plan.row(scal, g), plan=plan)
+        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
+
+
+class _WideFusedTrace(torch.autograd.Function):
+    """(records, masks, final state) of K2; backward K8."""
+
+    @staticmethod
+    def forward(ctx, world, prim, glass, state0, spec, config):
+        obj_tx = _obj_tx(world, spec.n_leaves)
+        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        records, masks, fstate = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass,
+                                                     slots, aabb)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, aabb, records, masks)
+        ctx.args = (spec, config)
+        ctx.mark_non_differentiable(masks)
+        return records, masks, fstate
+
+    @staticmethod
+    def backward(ctx, d_records, d_masks, d_fstate):
+        del d_masks
+        world, prim, glass, state0, obj_tx, slots, aabb, records, masks = ctx.saved_tensors
+        spec, config = ctx.args
+        d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+            d_records=d_records.contiguous(), d_fstate=d_fstate.contiguous())
+        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
+
+
 def _function_inputs(params, rays):
     dtype = rays.dtype
     state0 = torch.cat((rays.positions, rays.directions, rays.metadata)).contiguous()
@@ -1072,15 +1307,19 @@ def _function_inputs(params, rays):
     )
 
 
-def _check_scene(spec: SceneSpec, config: TraceConfig) -> bool:
-    """True for a wide scene (the staged backward), False for a narrow one;
-    raises for a scene no kernel covers."""
+def _check_scene(spec: SceneSpec, config: TraceConfig) -> str:
+    """The backward of the scene (:func:`wide_grad_mode`): ``"narrow"``,
+    ``"staged"`` or ``"fused"``; raises for a scene no kernel covers."""
     if not (ft.supports_fused(spec) or ft.supports_fused_wide(spec)):
         raise ValueError(
             "scene has non-packed materials, no leaves, or no batchable tree groups; "
             "use the plain engine"
         )
-    return wide_grad_mode(spec, config) == "staged"
+    return wide_grad_mode(spec, config)
+
+
+_LOSS_FUNCTIONS = {"narrow": _FusedLoss, "staged": _WideLoss, "fused": _WideFusedLoss}
+_TRACE_FUNCTIONS = {"narrow": _FusedTrace, "staged": _WideTrace, "fused": _WideFusedTrace}
 
 
 @lru_cache(maxsize=64)
@@ -1089,7 +1328,8 @@ def build_fused_value_and_grad_fn(spec: SceneSpec, materials, config: TraceConfi
     forward through K1, the loss from plain torch reductions of the records
     and masks, reverse mode through K3 (``loss.backward()`` or
     ``torch.autograd.grad``); a wide scene runs K2 with ``save_fold``
-    forward and the staged backward with K5 in its loss mode.  Raises
+    forward and the staged backward with K5 in its loss mode, or with
+    ``wide_grad="fused"`` K2 and K8 in its loss mode.  Raises
     ValueError for a loss without a plan (use
     :func:`build_fused_vjp_trace_fn`).  ``materials`` is accepted for the
     JAX package's signature."""
@@ -1097,7 +1337,7 @@ def build_fused_value_and_grad_fn(spec: SceneSpec, materials, config: TraceConfi
     plan = loss_plan(loss)
     if plan is None:
         raise ValueError(f"loss {loss!r} has no fused plan")
-    function = _WideLoss if _check_scene(spec, config) else _FusedLoss
+    function = _LOSS_FUNCTIONS[_check_scene(spec, config)]
 
     def value(params, rays):
         return function.apply(*_function_inputs(params, rays), spec, config, plan)
@@ -1109,11 +1349,12 @@ def build_fused_value_and_grad_fn(spec: SceneSpec, materials, config: TraceConfi
 def build_fused_vjp_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
     """``fn(params, rays) -> TraceResult`` through K1, reverse-mode
     differentiable through K4 (a wide scene: K2, then the staged backward
-    with K5 in its generic mode): autograd of any function of ``records``
+    with K5 in its generic mode, or K8 in its generic mode with
+    ``wide_grad="fused"``): autograd of any function of ``records``
     and ``final_rays`` runs the backward kernels.  Same contract as
     ``ops.fused_trace.build_fused_trace_fn``."""
     del materials
-    function = _WideTrace if _check_scene(spec, config) else _FusedTrace
+    function = _TRACE_FUNCTIONS[_check_scene(spec, config)]
 
     def trace(params, rays) -> engine.TraceResult:
         records, masks, fstate = function.apply(*_function_inputs(params, rays), spec, config)

@@ -102,9 +102,10 @@ MAX_NET_ROWS = 16
 IV_LOAD, IV_AND, IV_SUB, IV_FOLD, NET_PUSH, NET_COMBINE, NET_FOLD = range(7)
 
 _CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-# one shared library per kernel source; every source includes the header
-KERNEL_SOURCES = ("fused_trace.cu", "fused_grad.cu", "wide_trace.cu", "wide_grad.cu")
-_HEADERS = ("trace_common.cuh", "adjoint_common.cuh", "wide_common.cuh")
+# one shared library per kernel source; every source includes the headers
+KERNEL_SOURCES = ("fused_trace.cu", "fused_grad.cu", "wide_trace.cu", "wide_grad.cu",
+                  "wide_fused_grad.cu")
+_HEADERS = ("trace_common.cuh", "adjoint_common.cuh", "wide_common.cuh", "row_reduce.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
@@ -120,7 +121,7 @@ def supports_fused(spec: SceneSpec) -> bool:
 
 
 def supports_fused_wide(spec: SceneSpec) -> bool:
-    """True when the wide kernel K2 (and the staged backward K5-K7) covers
+    """True when the wide kernel K2 (and the wide backward, K5-K7 or K8) covers
     the scene: packed materials, more than 32 leaves, at least one
     batchable group of same-shape trees (``engine.wide_plan``), and at most
     32 leaves in the trees outside the groups.  A wide scene with no
@@ -156,7 +157,7 @@ def pick_fused(spec: SceneSpec, config: TraceConfig, device) -> bool:
     ``analysis.build_objective``.
 
     ``use_fused=None`` picks the kernels for CUDA tensors when the scene is
-    supported (narrow: K1 and K3/K4; wide: K2 and K5-K7); ``True`` demands
+    supported (narrow: K1 and K3/K4; wide: K2 and K5-K7 or K8); ``True`` demands
     them and raises for an unsupported scene or for tensors that are not on
     a CUDA device; ``False`` never picks them.  The backward kernels cover
     every scene their forward kernel covers, so one rule serves the trace
@@ -494,7 +495,7 @@ def _fold_needs(spec: SceneSpec) -> np.ndarray:
 
 @lru_cache(maxsize=64)
 def wide_program(spec: SceneSpec) -> np.ndarray:
-    """The int32 program of the wide kernels (K2, K5-K7).
+    """The int32 program of the wide kernels (K2, K5-K8).
 
     Layout: header ``[n_leaves, n_mats, n_instr, pairs_offset,
     n_single_leaves, n_groups, groups_offset, singles_offset,

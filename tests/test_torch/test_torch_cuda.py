@@ -462,3 +462,65 @@ def test_wide_objective_runs_k2_and_the_staged_backward(cuda):
         grads.append(g)
     torch.testing.assert_close(grads[0], grads[1], **TOL64)
     assert float(grads[0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype", WIDE_CASES)
+def test_wide_fused_bwd_matches_plain(cuda, name, dtype):
+    """K8 against its plain version on the plain forward's records, both
+    modes; two launches bit-identical; at float64 also against the staged
+    backward, which reads the fold the forward saved."""
+    spec, config, inputs, (rec, masks, fold5, win), _, d_rec, plan, scal = staged_inputs(
+        name, cuda, dtype)
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    d_fstate = torch.randn(inputs[0].shape, generator=gen, dtype=torch.float64).to(cuda, dtype)
+    for kw in (dict(d_records=d_rec, d_fstate=d_fstate), dict(scal=scal, plan=plan)):
+        before = fg.fused_bwd_wide.launches
+        kernel = fg.fused_bwd_wide(spec, config, *inputs, rec, masks, **kw)
+        again = fg.fused_bwd_wide(spec, config, *inputs, rec, masks, **kw)
+        assert fg.fused_bwd_wide.launches == before + 2
+        plain = fg.fused_bwd_wide_plain(spec, config, *inputs, rec, masks, **kw)
+        torch.cuda.synchronize()
+        for k, a, p, per_ray in zip(kernel, again, plain, (False, False, False, True)):
+            assert torch.equal(k, a)
+            assert_rows_close(k, p, dtype, per_ray)
+        assert float(kernel[0].abs().max()) > 0
+        if dtype == torch.float64:
+            state0, obj_tx, prim, glass, slots, _ = inputs
+            staged = fg.staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, rec, masks,
+                                   fold5, win, **kw)
+            for k, s in zip(kernel, staged):
+                torch.testing.assert_close(k, s, **TOL64)
+
+
+@pytest.mark.cuda
+def test_wide_objective_runs_k2_and_k8(cuda):
+    """build_objective with ``wide_grad="fused"`` on CUDA rays through a 5x5
+    array launches K2 and K8 (no staged kernel), and its per-lenslet radius
+    gradient equals the plain engine's."""
+    from pyrayt_tpu_torch.analysis import build_objective
+
+    rays = interop.rays_from_numpy(*wide_rays("mla5"), device=cuda, dtype=torch.float64)
+
+    def build_fn(radii):
+        lenslets = TORCH_NS.comp.microlens_array(radii, 0.25, 5, 5, 1.0)
+        return lenslets + [TORCH_NS.comp.baffle((10.0, 10.0)).move_x(4.0)]
+
+    radii0 = [2.0 + 0.01 * k for k in range(25)]
+    with TORCH_NS.fresh_ids():
+        sid = float(TORCH_NS.compile(build_fn(radii0), device=cuda).spec.leaf_ids[-1])
+    grads = []
+    counters = (ft.fused_trace_wide, fg.fused_bwd_wide, fg.staged_tail, fg.staged_group,
+                fg.staged_singles)
+    for use_fused in (None, False):
+        objective = build_objective(build_fn, rays, metrics.RmsSpotRadius(sid),
+                                    TraceConfig(generation_limit=4, use_fused=use_fused,
+                                                wide_grad="fused"))
+        radii = torch.tensor(radii0, dtype=torch.float64, device=cuda, requires_grad=True)
+        before = [c.launches for c in counters]
+        (g,) = torch.autograd.grad(objective(radii), radii)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert launched == ([1, 1, 0, 0, 0] if use_fused is None else [0] * 5), launched
+        grads.append(g)
+    torch.testing.assert_close(grads[0], grads[1], **TOL64)
+    assert float(grads[0].abs().max()) > 0

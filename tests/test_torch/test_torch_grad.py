@@ -225,16 +225,16 @@ def test_loss_plans_route_and_descriptors_hash():
 
 
 def test_wide_scenes_raise_in_the_gradient_path():
-    """A wide scene's gradients take the staged backward (K5-K7);
-    ``wide_grad="fused"``, the monolithic wide backward K8, is not ported
-    and raises rather than run another path."""
+    """A wide scene's gradients take the staged backward (K5-K7) by
+    default and the monolithic wide backward K8 with ``wide_grad="fused"``;
+    only an unknown mode raises."""
     from pyrayt_tpu_torch import components as comp
     from pyrayt_tpu_torch.scene.compile import compile_scene
 
     spec = compile_scene(comp.microlens_array(1.0, 0.2, 5, 4, 0.5), device="cpu").spec  # 40 leaves
     assert fg.wide_grad_mode(spec, TraceConfig()) == "staged"
     assert callable(fg.build_fused_vjp_trace_fn(spec, (), TraceConfig()))
-    with pytest.raises(NotImplementedError, match="K8"):
-        fg.wide_grad_mode(spec, TraceConfig(wide_grad="fused"))
-    with pytest.raises(NotImplementedError, match="K8"):
-        fg.build_fused_vjp_trace_fn(spec, (), TraceConfig(wide_grad="fused"))
+    assert fg.wide_grad_mode(spec, TraceConfig(wide_grad="fused")) == "fused"
+    assert callable(fg.build_fused_vjp_trace_fn(spec, (), TraceConfig(wide_grad="fused")))
+    with pytest.raises(ValueError, match="unknown"):
+        fg.build_fused_vjp_trace_fn(spec, (), TraceConfig(wide_grad="monolithic"))

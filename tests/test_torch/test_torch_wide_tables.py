@@ -137,9 +137,8 @@ def test_wide_grad_modes(twins):
     spec = t_scene.spec
     assert fg.wide_grad_mode(spec, TraceConfig()) == "staged"
     assert fg.wide_grad_mode(spec, TraceConfig(wide_grad="staged")) == "staged"
-    with pytest.raises(NotImplementedError, match="K8"):
-        fg.wide_grad_mode(spec, TraceConfig(wide_grad="fused"))
-    with pytest.raises(NotImplementedError, match="K8"):
-        fg.build_fused_vjp_trace_fn(spec, t_scene.materials, TraceConfig(wide_grad="fused"))
+    assert fg.wide_grad_mode(spec, TraceConfig(wide_grad="fused")) == "fused"
+    assert callable(fg.build_fused_vjp_trace_fn(spec, t_scene.materials,
+                                                TraceConfig(wide_grad="fused")))
     with pytest.raises(ValueError, match="unknown"):
         fg.wide_grad_mode(spec, TraceConfig(wide_grad="monolithic"))
