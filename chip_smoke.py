@@ -69,7 +69,19 @@ raises, and any failure exits non-zero:
              staged backward on the same trace; (c) both 8x8 training
              witnesses of phase 12 through K2 + K8, K8's launches up and the
              staged kernels' none; (d) K8, its plain version and the staged
-             backward per step, CUDA events, beside K8's bound.
+             backward per step, CUDA events, beside K8's bound, and the
+             profiler's split of K8's device time (the table reduce's
+             kernels apart);
+15. row reduce — the table reduce that K6, K7 and K8 end with
+             (``row_reduce``, csrc/row_reduce.cuh) alone against its plain
+             version, float64 and float32, two launches bit-identical, on
+             the tables of one K6 launch of a staged step (the one with the
+             most nonzero values) and of one K8 call on the 16x16 array at
+             2**20 rays (and bit for bit the sums those kernels returned),
+             and on synthetic keys (every key -1, one row, 4096 rows, a
+             detector-like skew, one entry, a ragged length); its
+             time by CUDA events beside its bytes bound, its plain version
+             and an ``index_add_`` yardstick the port never calls.
 
 Phases 1-8 keep their depth; phases 9-14 run the 16x16 array at full width
 (2**20 rays) except where a phase says otherwise.
@@ -568,6 +580,15 @@ def bound(bytes_moved, flops):
 
 
 PROFILED_STEPS = 5
+# the table reduce's kernels (csrc/row_reduce.cuh), as the profiler names them
+REDUCE_KERNELS = ("sort_segments", "scan_rows", "plan_rows", "sum_pieces", "finish_rows")
+# the O(rows x keys) scan the reduce replaced, as PERF.md records it (NVIDIA
+# H100 80GB HBM3, 700 W): reduce_rows' device time in one K8 call on the
+# 16x16 array (the profiler's trace of the last commit with the scan), and
+# one K6 launch with winners, its scan included (CUDA events)
+OLD_SCAN_MS = {"k8_call": 8.12, "k6_launch": 1.51}
+# float64 FLOP/s outside the tensor cores (NVIDIA H100 SXM data sheet)
+PEAK_F64 = 34e12
 
 
 def host_ms(torch, fn, repeats=10):
@@ -1047,7 +1068,10 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
                         torch, lambda: fg.staged_bwd(*staged_args, **kw))
                     t[f"plain_{label}_ms"] = cuda_ms(
                         torch, lambda: fg.fused_bwd_wide_plain(*args, **kw), repeats=1, warmup=0)
-                # where K8's time goes: device time per kernel it launches
+                # where K8's time goes: device time per kernel it launches,
+                # the mean over the launches the profiler recorded (each
+                # kernel runs once per call; the profiler can miss the first
+                # call's early launches, so dividing by the calls undercounts)
                 from torch.profiler import ProfilerActivity, profile
 
                 kw = modes["rms_loss_mode"]
@@ -1057,8 +1081,16 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
                         fg.fused_bwd_wide(*args, **kw)
                     torch.cuda.synchronize()
                 t["k8_device_ms_by_kernel"] = {
-                    e.key[:48]: device_us(e) / PROFILED_STEPS / 1e3 for e in prof.key_averages()
+                    e.key[:48]: device_us(e) / e.count / 1e3 for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0}
+                t["k8_launches_seen_per_call"] = {
+                    e.key[:48]: e.count / PROFILED_STEPS for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0}
+                t["k8_device_ms"] = sum(t["k8_device_ms_by_kernel"].values())
+                t["k8_reduce_device_ms"] = sum(
+                    v for k, v in t["k8_device_ms_by_kernel"].items()
+                    if any(name in k for name in REDUCE_KERNELS))
+                t["k8_event_minus_device_ms"] = t["k8_rms_loss_mode_ms"] - t["k8_device_ms"]
                 times[tag] = t
                 ran = fg.generations_ran(records, masks)
                 trees, ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
@@ -1115,6 +1147,146 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
             "ms": times[full]["k8_rms_loss_mode_ms"],
             "plain_ms": times[full]["plain_rms_loss_mode_ms"],
             "bound_ms": main_bound["ms"], "bound_by": main_bound["by"], "library_ms": None}
+
+
+def synthetic_key_sets(np, n, seed=0):
+    """The reduce's synthetic tables: ``{name: (keys (k,) int64, rows)}``,
+    keys in [-1, rows): every key -1; every key one row; uniform over 4096
+    rows; a detector-like skew (a third of the entries in one of 513 rows,
+    the rest uniform or -1); one entry; a length that is a multiple of
+    neither the sort's segment (2048) nor its warp step."""
+    rng = np.random.default_rng(seed)
+    skew = rng.integers(-1, 512, n)
+    skew[rng.random(n) < 1 / 3] = 512
+    return {
+        "all_minus_one": (np.full(n, -1), 16),
+        "one_row": (np.full(n, 5), 16),
+        "uniform_4096": (rng.integers(0, 4096, n), 4096),
+        "detector_skew": (skew, 513),
+        "n_one": (np.array([3]), 16),
+        "ragged": (rng.integers(-1, 40, n - 2048 + 333), 40),
+    }
+
+
+def reduce_bound(keys, n_rows, item):
+    """(bound ms, by, bytes) of one reduce on this table: every key read
+    once, the 18 values of each entry with a row read once, the sums and
+    the slots; 18 float64 adds per such entry."""
+    valid = int((keys >= 0).sum())
+    n_bytes = 4 * keys.numel() + 18 * item * valid + (18 * item + 4) * n_rows
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = 18 * valid / PEAK_F64 * 1e3
+    return (t_bytes, "bytes", n_bytes) if t_bytes >= t_ops else (t_ops, "operations", n_bytes)
+
+
+def row_reduce_phase(torch, np, pyrayt, comp, metrics, ft, fg, TraceConfig, fresh_ids,
+                     compile_scene, device, phase_seconds):
+    """Phase 15 (module docstring): the table reduce alone against its plain
+    version, and its times."""
+    phase_start = time.perf_counter()
+    config = TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True)
+    span = MLA_N * MLA_PITCH * 1.05  # bench.py:1258
+    grid = comp.GridOfRays(span, span).move_x(-1.0)
+    synthetic = synthetic_key_sets(np, N_RAYS)
+    rng = np.random.default_rng(1)
+    values = rng.standard_normal((N_RAYS, 18))
+    stats, times = {}, {}
+    make_table = fg._reduce_table
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        with fresh_ids():
+            system, detector, _ = mla_system(comp, pyrayt, MLA_N)
+            scene = compile_scene(system, device=device, dtype=dtype)
+        spec = scene.spec
+        rays = grid.generate_rays(N_RAYS, device=device, dtype=dtype)
+        inputs = ft.wide_kernel_inputs(spec, scene.params, rays)
+        state0, obj_tx, prim, glass, slots, _ = inputs
+        records, masks, _, fold5, win = ft.fused_trace_wide(spec, config, *inputs, save_fold=True)
+        plan = fg.loss_plan(metrics.RmsSpotRadius(float(detector.get_id())))
+        scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
+        # the tables the K6 launches of one staged step and one K8 call fill,
+        # with what each launch returned
+        tables, k6_launches = [], []
+
+        def keep(*args):
+            tables.append(make_table(*args))
+            return tables[-1]
+
+        def fold_kept(spec, group, *args):
+            out = fold_launch(spec, group, *args)
+            if group >= 0:  # K6; K7 is group -1
+                k6_launches.append((tables[-1], out))
+            return out
+
+        fold_launch = fg._fold_launch
+        fg._reduce_table, fg._fold_launch = keep, fold_kept
+        try:
+            fg.staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold5,
+                          win, scal=scal, plan=plan)
+            k8 = fg.fused_bwd_wide(spec, config, *inputs, records, masks, scal=scal, plan=plan)
+        finally:
+            fg._reduce_table, fg._fold_launch = make_table, fold_launch
+        k8_table = tables[-1]
+        # the K6 launch whose winners carry the most nonzero cotangents
+        # back from the detector
+        (k6_keys, k6_vals), k6 = max(
+            k6_launches, key=lambda t: int(((t[0][0] >= 0)[:, None] & (t[0][1] != 0)).sum()))
+        info = [i for kind, _, i in ft.wide_fold_plan(spec) if kind == "group"][0]
+        s_count = spec.n_leaves
+        cases = {
+            "k6_launch": (k6_keys, k6_vals, slots[info["off"]:info["off"] + info["T"] * info["L"]],
+                          s_count, k6[:2]),
+            "k8_call": (k8_table[0].reshape(-1), k8_table[1].reshape(-1, 18),
+                        torch.arange(s_count, dtype=torch.int32, device=device), s_count,
+                        (k8[0], k8[1])),
+        }
+        for name, (keys_np, rows) in synthetic.items():
+            vals = values[:keys_np.size].copy()
+            vals[keys_np < 0] = np.nan  # no reduce may read them
+            cases[name] = (torch.as_tensor(keys_np, dtype=torch.int32, device=device),
+                           torch.as_tensor(vals, dtype=dtype, device=device),
+                           torch.as_tensor(rng.permutation(rows + 3)[:rows], dtype=torch.int32,
+                                           device=device), rows + 3, None)
+        held, identical, same_as_kernel = {}, {}, {}
+        for name, (keys, vals, reduce_slots, n_slots, kernel_out) in cases.items():
+            rows = reduce_slots.numel()
+            first = fg.row_reduce(keys, vals, reduce_slots, rows, n_slots)
+            again = fg.row_reduce(keys, vals, reduce_slots, rows, n_slots)
+            identical[name] = all(torch.equal(a, b) for a, b in zip(first, again))
+            hold(torch, held, f"row_reduce.{name}", ("d_objtx", "d_prim"), first,
+                 fg.row_reduce_plain(keys, vals, reduce_slots, rows, n_slots), dtype)
+            if kernel_out is not None:  # the kernel's own sums, bit for bit
+                same_as_kernel[name] = (torch.equal(first[0][:, :12], kernel_out[0][:, :12])
+                                        and torch.equal(first[1], kernel_out[1]))
+            if dtype == torch.float32:
+                bnd = reduce_bound(keys, rows, vals.element_size())
+                mapped = torch.where(keys >= 0, keys, rows).long()
+                vals64 = vals.double()
+                times[name] = {
+                    "n": keys.numel(), "rows": rows, "valid": int((keys >= 0).sum()),
+                    "ms": cuda_ms(torch, lambda: fg.row_reduce(keys, vals, reduce_slots, rows,
+                                                               n_slots)),
+                    "plain_ms": cuda_ms(torch, lambda: fg.row_reduce_plain(
+                        keys, vals, reduce_slots, rows, n_slots), repeats=3, warmup=1),
+                    "library_ms": cuda_ms(torch, lambda: torch.zeros(
+                        (rows + 1, 18), dtype=torch.float64, device=device).index_add_(
+                        0, mapped, vals64)),
+                    "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2]}
+                del mapped, vals64
+        stats[tag] = held
+        log(f"row reduce against its plain version ({tag}; the tables of one K6 launch and one K8 "
+            f"call on the {MLA_N}x{MLA_N} array at {N_RAYS} rays, and synthetic keys): two "
+            f"launches bit-identical {json.dumps(identical)}; the kernels' own sums "
+            f"{json.dumps(same_as_kernel)}; " + json.dumps(held))
+        assert all(identical.values()), identical
+        assert all(same_as_kernel.values()), same_as_kernel
+        assert_held(held, dtype, torch, tag)
+        del scene, rays, inputs, records, masks, fold5, win, tables, k6_launches, cases, k6, k8
+        torch.cuda.empty_cache()
+    log("row reduce times (float32, CUDA events, median; library: torch.zeros(R + 1, 18, "
+        "float64).index_add_ of the float64 values, keys -1 mapped to R; the replaced scan as "
+        f"recorded {json.dumps(OLD_SCAN_MS)} ms): " + json.dumps(times) + f" on {card_line()}")
+    phase_seconds["row_reduce"] = time.perf_counter() - phase_start
 
 
 def main() -> int:
@@ -1513,6 +1685,8 @@ def main() -> int:
     wide_kernels.append(wide_fused_phase(
         torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, fresh_ids, compile_scene,
         build_objective, optimize, device, phase_seconds, np))
+    row_reduce_phase(torch, np, pyrayt, comp, metrics, ft, fg, TraceConfig, fresh_ids,
+                     compile_scene, device, phase_seconds)
     log("phase seconds:", json.dumps(phase_seconds))
 
     def k_err(key):

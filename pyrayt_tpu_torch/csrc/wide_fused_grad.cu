@@ -24,30 +24,35 @@
 // A generation the ray did not run passes the carried cotangent through.
 // At the end it writes d_state0 (13, n) with zero homogeneous w rows.
 //
-// Sums over rays, deterministic and without float atomics.  Per generation
-// it ran and hit, a ray writes its winning leaf's slot as a row key (-1
-// otherwise) and the leaf's 18 table cotangents (transform rows 0-2, 6
-// params) into (G, n) keys and (18, G, n) values; row_reduce.cuh adds them
-// per leaf in (generation, ray) order.  The glass cotangents go per
-// generation into per-block float64 partials, folded in ray order within
-// the block, which reduce_partials adds in a fixed order.  Two launches give
-// bit-identical gradients.  The TPU kernel accumulates into scalar memory
-// over its sequential grid; here blocks run in parallel, so every sum takes
-// a second pass.
+// Sums over rays, deterministic and without float atomics.  The TPU kernel
+// accumulates into scalar memory over its sequential grid (pyrayt_tpu/ops/
+// fused_grad.py:17-19, :268-289); here blocks run in parallel, so every sum
+// takes a second pass.  Per generation it ran and hit, a ray writes its
+// winning leaf's slot as a row key (-1 otherwise: no values written) and
+// the leaf's 18 table cotangents (transform rows 0-2, 6 params) as one
+// entry of (G, n) keys and (G, n, 18) values; row_reduce.cuh sums them per
+// leaf: a stable counting sort of the entries by key, float64 sums over
+// fixed pieces of each leaf's entries in (generation, ray) order, a
+// fixed-order finish.  It reads the keys twice and each hit's 18 values
+// once (O(G n + leaves) work), and the detector, a third of the entries,
+// spreads over as many warps as it has pieces.  The glass cotangents go
+// per generation into per-block float64 partials, folded in ray order
+// within the block, which reduce_partials adds in a fixed order.  Two
+// launches give bit-identical gradients.
 //
 // Tables: as K2, the program prefix, the single leaves' tables (at most 32)
 // and the glass rows sit in shared memory beside the glass staging (7.8 KB);
 // the groups' tables are read from global memory.  So the leaf count has no
 // cap of its own (the JAX kernel's 300-leaf cap guarded a TPU compiler
-// crash); what grows with the scene is the reduce's key scan (leaves x G n
-// keys), and with the rays the (18, G, n) value buffer in device memory.
+// crash; the reduce's shared-memory row counters cap it at 51,200 leaves),
+// and with the rays grows the (G, n, 18) value buffer in device memory.
 //
 // What bounds it on an H100: per ray and generation run, the fold's box
 // tests and the leaf intersections of the trees in the chunks it enters (as
 // K2), the tail adjoint and one leaf's adjoint, against 15 record rows, the
 // mask and the 13 state rows in and out per ray (generic mode: 15
-// d_records and 13 d_fstate rows more): operations bind.  The reduce's key
-// scan, L2-resident, adds leaves x G n key reads.
+// d_records and 13 d_fstate rows more): operations bind.  The reduce adds
+// two reads of the G n keys and one of each hit's 18 values.
 //
 // No pointer here is __restrict__ and the fold stays wide_nearest: nvcc
 // 12.9 at -O3 miscompiled two wide kernels whose shared-memory pointers
@@ -90,7 +95,6 @@ __global__ void __launch_bounds__(kThreads) wide_fused_bwd_kernel(
                                           aabb);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
   const bool active = i < n;
-  const long long gn = static_cast<long long>(generations) * n;
 
   // the carried cotangent: of the final state (generic mode) or zero
   Carry<T> bar;
@@ -214,8 +218,7 @@ __global__ void __launch_bounds__(kThreads) wide_fused_bwd_kernel(
             bar.v[c] += v_bar[c];
           }
           key = h.leaf;
-          T* out = vals + static_cast<long long>(g) * n + i;
-          for (int k = 0; k < kGeo; ++k) out[k * gn] = geo[k];
+          store_entry(vals + (static_cast<long long>(g) * n + i) * kGeo, geo);
         }
       }
       keys[static_cast<long long>(g) * n + i] = key;
@@ -252,11 +255,11 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
            const void* records, const void* masks, const void* d_records, const void* d_fstate,
            int plan, const void* scal, int n_scal, double ray_offset, double world_index,
            double threshold, int apply_threshold, void* d_state0, void* keys, void* vals,
-           void* glass_partials, const void* reduce_slots, int n_rows, void* row_partials,
-           void* any_winner, void* d_objtx, void* d_prim, void* d_glass, void* stream) {
+           void* glass_partials, const void* reduce_slots, int n_rows, void* scratch,
+           void* d_objtx, void* d_prim, void* d_glass, void* stream) {
   if (prefix_len < kWideHeader || n_single_leaves < 0 || n_single_leaves > kMaxSingleLeaves ||
       n_glass < 0 || generations < 0 || n_scal < 0 || n_scal > kMaxScal || n_rows < 0 ||
-      (n_rows > 0 && any_winner == nullptr) ||
+      (n_rows > 0 && scratch == nullptr) ||
       (LOSS && (plan < 0 || plan > 2 || scal == nullptr)) ||
       (!LOSS && (d_records == nullptr || d_fstate == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -290,7 +293,7 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return launch_row_reduce<T>(keys, vals, static_cast<long long>(generations) * n, n_rows,
-                              reduce_slots, row_partials, any_winner, d_objtx, d_prim, s);
+                              reduce_slots, scratch, d_objtx, d_prim, s);
 }
 
 }  // namespace
@@ -302,13 +305,12 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
       const void *d_records, const void *d_fstate, int plan, const void *scal, int n_scal,       \
       double ray_offset, double world_index, double threshold, int apply_threshold,              \
       void *d_state0, void *keys, void *vals, void *glass_partials, const void *reduce_slots,    \
-      int n_rows, void *row_partials, void *any_winner, void *d_objtx, void *d_prim,             \
-      void *d_glass, void *stream
+      int n_rows, void *scratch, void *d_objtx, void *d_prim, void *d_glass, void *stream
 #define PYRAYT_FUSED_WIDE_PASS                                                                  \
   state0, n, generations, objtx, prim, glass, program, prefix_len, n_single_leaves, n_glass,    \
       slots, aabb, records, masks, d_records, d_fstate, plan, scal, n_scal, ray_offset,          \
       world_index, threshold, apply_threshold, d_state0, keys, vals, glass_partials,             \
-      reduce_slots, n_rows, row_partials, any_winner, d_objtx, d_prim, d_glass, stream
+      reduce_slots, n_rows, scratch, d_objtx, d_prim, d_glass, stream
 
 extern "C" {
 
@@ -324,9 +326,11 @@ int pyrayt_wide_fused_bwd_f64(PYRAYT_FUSED_WIDE_ARGS) {
                   : launch<double, true>(PYRAYT_FUSED_WIDE_PASS);
 }
 
-// chunks per reduce row: the wrapper sizes the row partials (n_rows *
-// chunks * 18 float64) from it
-int pyrayt_wide_fused_chunks(long long n, int n_rows) { return fold_chunks(n, n_rows); }
+// bytes of the reduce's scratch for n entries (G x rays) and n_rows rows;
+// -1 past the reduce's limits (row_reduce.cuh)
+long long pyrayt_wide_fused_reduce_scratch(long long n, int n_rows) {
+  return reduce_plan(n, n_rows).bytes;
+}
 
 // threads per block: the wrapper sizes the glass partials (7 M x G blocks)
 int pyrayt_wide_fused_block_threads() { return kThreads; }

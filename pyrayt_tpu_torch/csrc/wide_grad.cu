@@ -29,20 +29,24 @@
 // only selects values), so each ray's table cotangent is 18 values (rows
 // 0-2 of that leaf's transform, its 6 params) for one row of the launch's
 // reduce table (group: sorted tree t's leaf j is row t L + j; singles: the
-// compact single leaf).  Deterministic sums without float atomics
-// (row_reduce.cuh): per reduce row and chunk of rays one block scans the
-// rays' row keys in ray order and sums the matching rays' values in
-// float64, and a last kernel adds each row's chunks in order.  Two launches
-// give bit-identical gradients.  The scan reads every key once per row
-// (R n keys: 512 x 2^20 for the 16x16 array, L2-resident); a counting sort
-// by key would make it O(n).  A launch none of whose rays won one of its
-// trees (a generation no ray hits a lenslet) skips the scan.
+// compact single leaf).  The TPU kernels accumulate these into one
+// scalar-memory output over a sequential grid (pyrayt_tpu/ops/
+// fused_grad.py:17-19, :268-289); here a ray writes its row key (-1: it won
+// none of the launch's trees) and its 18 values (n, 18; zeros without a
+// row; a warp's 32 entries leave through shared memory as coalesced
+// stores), and row_reduce.cuh sums them per row without atomics: a stable
+// counting sort of the rays by key, float64 sums over fixed pieces of each
+// row, a fixed-order finish.  Two launches give bit-identical gradients.  The
+// reduce does O(n + rows) work: it reads the keys twice and each winner's
+// 18 values once, and splits a row that holds every ray (K7's detector)
+// over many warps.  A launch none of whose rays won one of its trees sorts
+// nothing and writes zero sums.
 //
 // What bounds them on an H100: K5 reads 15 record rows, the mask, 5 fold
 // rows and 11 carried rows (K4 mode: 15 d_records rows) and writes 10 + 11
-// rows per ray; K6/K7 read 10 buf rows and win, write 6 + 1 + 18 rows per
-// ray, and the reduce reads the keys R times.  Per ray the arithmetic is a
-// few hundred operations, so bytes bind.
+// rows per ray; K6/K7 read 10 buf rows and win and write 6 + 1 + 18 rows
+// per ray, of which the reduce reads the winners' 18 once.  Per ray the
+// arithmetic is a few hundred operations, so bytes bind.
 
 #include "row_reduce.cuh"
 #include "wide_common.cuh"
@@ -272,6 +276,12 @@ __device__ __noinline__ Winner<T> find_winner(const WideScene<T>& ws, int group,
   return w;
 }
 
+// shared bytes ahead of the scene copy: each thread's 18 table values
+template <typename T>
+__host__ __device__ constexpr size_t fold_stage_bytes() {
+  return sizeof(T) * kGeo * kThreads;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) staged_fold_kernel(
     long long n, const T* buf, const int* win,
@@ -279,65 +289,77 @@ __global__ void __launch_bounds__(kThreads) staged_fold_kernel(
     int prefix_len, int n_single_leaves, const int* slots, int group,
     T* dpv, int* keys, T* vals) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const WideScene<T> ws = load_wide_scene(smem, program, prefix_len, n_single_leaves, objtx, prim,
+  const WideScene<T> ws = load_wide_scene(smem + fold_stage_bytes<T>(), program, prefix_len,
+                                          n_single_leaves, objtx, prim,
                                           static_cast<const T*>(nullptr), 0, slots,
                                           static_cast<const T*>(nullptr));
+  const int lane = threadIdx.x & 31;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T p[3] = {buf[i], buf[n + i], buf[2 * n + i]};
-  const T v[3] = {buf[3 * n + i], buf[4 * n + i], buf[5 * n + i]};
-  T p_bar[3] = {T(0), T(0), T(0)}, v_bar[3] = {T(0), T(0), T(0)};
   T geo[kGeo];
   for (int k = 0; k < kGeo; ++k) geo[k] = T(0);
-  const Winner<T> w = find_winner(ws, group, win[i], p, v);
-  int row = -1;
-  if (w.row >= 0 && isfinite(w.best)) {
-    row = w.row;
-    const T* m = objtx + 16 * w.slot;
-    const T* pr = prim + 6 * w.slot;
-    const T t = w.best;
-    T t_bar = buf[6 * n + i];
-    const T nrm_bar[3] = {buf[7 * n + i], buf[8 * n + i], buf[9 * n + i]};
-    T* m_bar = geo;
-    T* pr_bar = geo + 12;
-    T o_bar[3] = {T(0), T(0), T(0)}, d_bar[3] = {T(0), T(0), T(0)};
-    if (w.needs) {
-      // the normal at the object-space hit lh = o + t d (_wide_tree_eval)
-      T o[3], d[3], lh[3], lh_bar[3];
-      local_ray(m, p, v, o, d);
-      for (int r = 0; r < 3; ++r) lh[r] = o[r] + t * d[r];
-      const T scale = static_cast<T>(ws.leaf[5 * w.slot + 2]);
-      world_normal_adjoint(w.type, m, pr, lh, scale, nrm_bar, m_bar, pr_bar, lh_bar);
-      for (int r = 0; r < 3; ++r) {
-        o_bar[r] += lh_bar[r];
-        d_bar[r] += t * lh_bar[r];
+  if (i < n) {
+    const T p[3] = {buf[i], buf[n + i], buf[2 * n + i]};
+    const T v[3] = {buf[3 * n + i], buf[4 * n + i], buf[5 * n + i]};
+    T p_bar[3] = {T(0), T(0), T(0)}, v_bar[3] = {T(0), T(0), T(0)};
+    const Winner<T> w = find_winner(ws, group, win[i], p, v);
+    int row = -1;
+    if (w.row >= 0 && isfinite(w.best)) {
+      row = w.row;
+      const T* m = objtx + 16 * w.slot;
+      const T* pr = prim + 6 * w.slot;
+      const T t = w.best;
+      T t_bar = buf[6 * n + i];
+      const T nrm_bar[3] = {buf[7 * n + i], buf[8 * n + i], buf[9 * n + i]};
+      T* m_bar = geo;
+      T* pr_bar = geo + 12;
+      T o_bar[3] = {T(0), T(0), T(0)}, d_bar[3] = {T(0), T(0), T(0)};
+      if (w.needs) {
+        // the normal at the object-space hit lh = o + t d (_wide_tree_eval)
+        T o[3], d[3], lh[3], lh_bar[3];
+        local_ray(m, p, v, o, d);
+        for (int r = 0; r < 3; ++r) lh[r] = o[r] + t * d[r];
+        const T scale = static_cast<T>(ws.leaf[5 * w.slot + 2]);
+        world_normal_adjoint(w.type, m, pr, lh, scale, nrm_bar, m_bar, pr_bar, lh_bar);
+        for (int r = 0; r < 3; ++r) {
+          o_bar[r] += lh_bar[r];
+          d_bar[r] += t * lh_bar[r];
+        }
+        t_bar += dot3(lh_bar, d);
       }
-      t_bar += dot3(lh_bar, d);
+      const int code = endpoint_code(leaf_pair_at(w.type, m, pr, p, v), t);
+      hit_distance_adjoint(w.type, m, pr, p, v, code, t, t_bar, o_bar, d_bar, m_bar, pr_bar, p_bar,
+                           v_bar);
     }
-    const int code = endpoint_code(leaf_pair_at(w.type, m, pr, p, v), t);
-    hit_distance_adjoint(w.type, m, pr, p, v, code, t, t_bar, o_bar, d_bar, m_bar, pr_bar, p_bar,
-                         v_bar);
+    for (int c = 0; c < 3; ++c) {
+      dpv[c * n + i] = p_bar[c];
+      dpv[(3 + c) * n + i] = v_bar[c];
+    }
+    keys[i] = row;
   }
-  for (int c = 0; c < 3; ++c) {
-    dpv[c * n + i] = p_bar[c];
-    dpv[(3 + c) * n + i] = v_bar[c];
+  // the warp's 32 entries (zeros for a ray without a row) leave through
+  // shared memory as 32 x 18 contiguous values, so the stores coalesce
+  T* stage = reinterpret_cast<T*>(smem) + static_cast<long long>(threadIdx.x - lane) * kGeo;
+  for (int k = 0; k < kGeo; ++k) stage[lane * kGeo + k] = geo[k];
+  __syncwarp();
+  const long long first = (i - lane) * kGeo;
+  for (int q = 0; q < kGeo; ++q) {
+    const long long e = first + 32 * q + lane;
+    if (e < n * kGeo) vals[e] = stage[32 * q + lane];
   }
-  keys[i] = row;
-  for (int k = 0; k < kGeo; ++k) vals[k * n + i] = geo[k];
 }
 
 template <typename T>
 int launch_fold(long long n, const void* buf, const void* win, const void* objtx,
                 const void* prim, const void* program, int prefix_len, int n_single_leaves,
                 const void* slots, int group, void* dpv, void* keys, void* vals, void* d_objtx,
-                void* d_prim, const void* reduce_slots, int n_rows, void* partials,
-                void* any_winner, void* stream) {
+                void* d_prim, const void* reduce_slots, int n_rows, void* scratch,
+                void* stream) {
   if (prefix_len < kWideHeader || n_single_leaves < 0 || n_single_leaves > kMaxSingleLeaves ||
-      group < -1 || n_rows < 0 || (n_rows > 0 && any_winner == nullptr)) {
+      group < -1 || n_rows < 0 || (n_rows > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const size_t smem = wide_smem_bytes<T>(prefix_len, n_single_leaves, 0);
+  const size_t smem = fold_stage_bytes<T>() + wide_smem_bytes<T>(prefix_len, n_single_leaves, 0);
   auto kernel = staged_fold_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -353,8 +375,7 @@ int launch_fold(long long n, const void* buf, const void* win, const void* objtx
       static_cast<T*>(vals));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_row_reduce<T>(keys, vals, n, n_rows, reduce_slots, partials, any_winner, d_objtx,
-                              d_prim, s);
+  return launch_row_reduce<T>(keys, vals, n, n_rows, reduce_slots, scratch, d_objtx, d_prim, s);
 }
 
 }  // namespace
@@ -373,10 +394,10 @@ int launch_fold(long long n, const void* buf, const void* win, const void* objtx
   long long n, const void *buf, const void *win, const void *objtx, const void *prim,         \
       const void *program, int prefix_len, int n_single_leaves, const void *slots, int group, \
       void *dpv, void *keys, void *vals, void *d_objtx, void *d_prim,                          \
-      const void *reduce_slots, int n_rows, void *partials, void *any_winner, void *stream
+      const void *reduce_slots, int n_rows, void *scratch, void *stream
 #define PYRAYT_FOLD_PASS                                                                      \
   n, buf, win, objtx, prim, program, prefix_len, n_single_leaves, slots, group, dpv, keys,    \
-      vals, d_objtx, d_prim, reduce_slots, n_rows, partials, any_winner, stream
+      vals, d_objtx, d_prim, reduce_slots, n_rows, scratch, stream
 
 extern "C" {
 
@@ -396,9 +417,26 @@ int pyrayt_staged_tail_f64(PYRAYT_TAIL_ARGS) {
 int pyrayt_staged_fold_f32(PYRAYT_FOLD_ARGS) { return launch_fold<float>(PYRAYT_FOLD_PASS); }
 int pyrayt_staged_fold_f64(PYRAYT_FOLD_ARGS) { return launch_fold<double>(PYRAYT_FOLD_PASS); }
 
-// chunks per reduce row of K6/K7: the wrapper sizes their float64 partials
-// (n_rows * chunks * 18) from it
-int pyrayt_staged_fold_chunks(long long n, int n_rows) { return fold_chunks(n, n_rows); }
+// bytes of the reduce's scratch for n entries and n_rows rows (K6/K7 and
+// the reduce alone); -1 past the reduce's limits (row_reduce.cuh)
+long long pyrayt_staged_reduce_scratch(long long n, int n_rows) {
+  return reduce_plan(n, n_rows).bytes;
+}
+
+// The reduce alone: sums the n entries (keys (n,) int32, vals (n, 18)) per
+// row into rows 0-2 of d_objtx and into d_prim of slot reduce_slots[r]
+int pyrayt_row_reduce_f32(const void* keys, const void* vals, long long n, int n_rows,
+                          const void* reduce_slots, void* scratch, void* d_objtx, void* d_prim,
+                          void* stream) {
+  return launch_row_reduce<float>(keys, vals, n, n_rows, reduce_slots, scratch, d_objtx, d_prim,
+                                  static_cast<cudaStream_t>(stream));
+}
+int pyrayt_row_reduce_f64(const void* keys, const void* vals, long long n, int n_rows,
+                          const void* reduce_slots, void* scratch, void* d_objtx, void* d_prim,
+                          void* stream) {
+  return launch_row_reduce<double>(keys, vals, n, n_rows, reduce_slots, scratch, d_objtx, d_prim,
+                                   static_cast<cudaStream_t>(stream));
+}
 
 // threads per block of K5: the wrapper sizes the glass partials from it
 int pyrayt_staged_block_threads() { return kThreads; }

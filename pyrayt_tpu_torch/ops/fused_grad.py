@@ -86,6 +86,8 @@ __all__ = [
     "fused_bwd_loss_plain",
     "fused_bwd_wide",
     "fused_bwd_wide_plain",
+    "row_reduce",
+    "row_reduce_plain",
     "build_fused_value_and_grad_fn",
     "build_fused_vjp_trace_fn",
 ]
@@ -99,6 +101,8 @@ _R_XT, _R_YT = 12, 13
 PLAN_RMS, PLAN_FOCUS, PLAN_SOFT_FOCUS = range(3)
 # capacity of the kernel's scalar row; keep equal to kMaxScal
 MAX_SCALARS = 16
+# values per entry of the wide table reduce; keep equal to kGeo
+GEO_VALUES = 18
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +292,9 @@ def wide_grad_mode(spec: SceneSpec, config: TraceConfig) -> str:
     :func:`~pyrayt_tpu_torch.ops.fused_trace.supports_fused_wide`) and the
     glass rows in shared memory, plus 7.8 KB of staging, and reads the
     groups' tables from global memory.  What grows is device memory, 18
-    values per ray and generation for its table sums, and the time of their
-    key scan, leaves x generations x rays."""
+    values per ray and generation for its table sums, whose counting-sort
+    reduce does work in proportion to generations x rays + leaves (at most
+    51,200 leaves: ``csrc/row_reduce.cuh``)."""
     if ft.supports_fused(spec):
         return "narrow"
     mode = config.wide_grad
@@ -803,18 +808,22 @@ def _wide_library():
     fold_args = (
         [ctypes.c_longlong] + [p] * 5  # n; buf, win, objtx, prim, program
         + [i, i, p, i]  # prefix_len, n_single_leaves, slots, group (-1: the singles)
-        + [p] * 5 + [p, i, p, p, p]  # dpv, keys, vals, d_objtx, d_prim; reduce slots, rows,
-        # partials, any-winner flag, stream
+        + [p] * 5 + [p, i, p, p]  # dpv, keys, vals, d_objtx, d_prim; reduce slots, rows,
+        # reduce scratch, stream
     )
+    reduce_args = [p, p, ctypes.c_longlong, i, p, p, p, p, p]  # keys, vals, n, rows, reduce
+    # slots, scratch, d_objtx, d_prim, stream
     for name, args in (("pyrayt_staged_tail_f32", tail_args),
                        ("pyrayt_staged_tail_f64", tail_args),
                        ("pyrayt_staged_fold_f32", fold_args),
-                       ("pyrayt_staged_fold_f64", fold_args)):
+                       ("pyrayt_staged_fold_f64", fold_args),
+                       ("pyrayt_row_reduce_f32", reduce_args),
+                       ("pyrayt_row_reduce_f64", reduce_args)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.pyrayt_staged_fold_chunks.argtypes = [ctypes.c_longlong, i]
-    lib.pyrayt_staged_fold_chunks.restype = i
+    lib.pyrayt_staged_reduce_scratch.argtypes = [ctypes.c_longlong, i]
+    lib.pyrayt_staged_reduce_scratch.restype = ctypes.c_longlong
     lib.pyrayt_staged_block_threads.argtypes = []
     lib.pyrayt_staged_block_threads.restype = ctypes.c_int
     lib.pyrayt_staged_error_string.argtypes = [ctypes.c_int]
@@ -898,6 +907,25 @@ def staged_tail(spec, config, state0, rec, mask, pmask, fold5, glass, carry_bar,
 staged_tail.launches = 0
 
 
+def _reduce_table(shape, dtype, device):
+    """The reduce table the wide backward kernels fill: ``keys`` (shape)
+    int32, one reduce row per entry or -1, and ``vals`` (shape + (18,)),
+    each entry's 18 values contiguous (rows 0-2 of its leaf's transform,
+    its 6 params), written only where the key is a row."""
+    return (torch.empty(shape, dtype=torch.int32, device=device),
+            torch.empty(tuple(shape) + (GEO_VALUES,), dtype=dtype, device=device))
+
+
+def _reduce_scratch(scratch_bytes, n, rows, device):
+    """The reduce's scratch for ``n`` entries and ``rows`` rows, sized by
+    the library's helper (``scratch_bytes``, -1 past the reduce's limits)."""
+    size = scratch_bytes(n, rows)
+    if size < 0:
+        raise ValueError(f"the table reduce takes at most 51200 rows (kMaxReduceRows) and "
+                         f"2**31 - 1 entries, got {rows} rows and {n} entries")
+    return torch.empty((size,), dtype=torch.uint8, device=device)
+
+
 def _fold_launch(spec, group, buf, win, obj_tx, prim, slots, reduce_slots):
     _check_rows([("buf", buf, 10)], buf)
     if win.dtype != torch.int32 or win.device != buf.device or tuple(win.shape) != (buf.shape[1],):
@@ -906,14 +934,11 @@ def _fold_launch(spec, group, buf, win, obj_tx, prim, slots, reduce_slots):
     n, s_count = buf.shape[1], spec.n_leaves
     kw = dict(dtype=buf.dtype, device=buf.device)
     dpv = torch.empty((6, n), **kw)
-    keys = torch.empty((n,), dtype=torch.int32, device=buf.device)
-    vals = torch.empty((18, n), **kw)
+    keys, vals = _reduce_table((n,), buf.dtype, buf.device)
     d_obj = torch.zeros((s_count, 16), **kw)
     d_prim = torch.zeros((s_count, 6), **kw)
     rows = reduce_slots.numel()
-    partials = torch.empty((max(1, rows * lib.pyrayt_staged_fold_chunks(n, rows) * 18),),
-                           dtype=torch.float64, device=buf.device)
-    any_winner = torch.empty((1,), dtype=torch.int32, device=buf.device)
+    scratch = _reduce_scratch(lib.pyrayt_staged_reduce_scratch, n, rows, buf.device)
     program = ft.device_wide_program(spec, buf.device)
     fn = lib.pyrayt_staged_fold_f32 if buf.dtype == torch.float32 else lib.pyrayt_staged_fold_f64
     with torch.cuda.device(buf.device):
@@ -921,7 +946,7 @@ def _fold_launch(spec, group, buf, win, obj_tx, prim, slots, reduce_slots):
             n, buf.data_ptr(), win.data_ptr(), obj_tx.data_ptr(), prim.data_ptr(),
             program.data_ptr(), *ft.wide_program_sizes(spec), slots.data_ptr(), group,
             dpv.data_ptr(), keys.data_ptr(), vals.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(),
-            reduce_slots.data_ptr(), rows, partials.data_ptr(), any_winner.data_ptr(),
+            reduce_slots.data_ptr(), rows, scratch.data_ptr(),
             torch.cuda.current_stream(buf.device).cuda_stream,
         )
     _raise_on(lib, err, "staged_group" if group >= 0 else "staged_singles")
@@ -972,6 +997,87 @@ def staged_singles(spec, buf, win, obj_tx, prim, slots):
 
 
 staged_singles.launches = 0
+
+
+def _check_reduce(keys, vals, reduce_slots, n_rows, n_slots):
+    n = keys.shape[0] if keys.ndim == 1 else -1
+    if keys.dtype != torch.int32 or n < 0 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous (n,) int32 tensor")
+    if tuple(vals.shape) != (n, GEO_VALUES) or not vals.is_contiguous():
+        raise ValueError(f"vals: expected contiguous ({n}, {GEO_VALUES}), got {tuple(vals.shape)}")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"vals must be float32 or float64, got {vals.dtype}")
+    if (reduce_slots.dtype != torch.int32 or tuple(reduce_slots.shape) != (n_rows,)
+            or not reduce_slots.is_contiguous()):
+        raise ValueError(f"reduce_slots must be a contiguous ({n_rows},) int32 tensor")
+    if keys.device != vals.device or reduce_slots.device != vals.device:
+        raise ValueError("keys, vals and reduce_slots must lie on one device")
+    if n_slots < 0:
+        raise ValueError("n_slots must be >= 0")
+
+
+def row_reduce_plain(keys, vals, reduce_slots, n_rows, n_slots=None):
+    """Plain PyTorch version of :func:`row_reduce`: the float64 sum of each
+    row's entries (``index_add_``, in entry order on CPU tensors), cast to
+    the values' dtype."""
+    n_slots = n_rows if n_slots is None else n_slots
+    _check_reduce(keys, vals, reduce_slots, n_rows, n_slots)
+    if bool(((keys < -1) | (keys >= n_rows)).any()):
+        raise ValueError(f"keys must lie in [-1, {n_rows})")
+    if bool(((reduce_slots < 0) | (reduce_slots >= n_slots)).any()):
+        raise ValueError(f"reduce_slots must lie in [0, {n_slots})")
+    idx = (keys >= 0).nonzero().squeeze(1)
+    sums = torch.zeros((n_rows, GEO_VALUES), dtype=torch.float64, device=vals.device)
+    sums.index_add_(0, keys[idx].long(), vals[idx].to(torch.float64))
+    d_obj = torch.zeros((n_slots, 16), dtype=vals.dtype, device=vals.device)
+    d_prim = torch.zeros((n_slots, 6), dtype=vals.dtype, device=vals.device)
+    slots = reduce_slots.long()
+    d_obj[slots, :12] = sums[:, :12].to(vals.dtype)
+    d_prim[slots] = sums[:, 12:].to(vals.dtype)
+    return d_obj, d_prim
+
+
+def row_reduce(keys, vals, reduce_slots, n_rows, n_slots=None):
+    """The wide backward's table reduce alone (``csrc/row_reduce.cuh``, the
+    sum K6, K7 and K8 end with): entry i of ``keys`` (n,) int32 names a
+    reduce row in [0, n_rows) or -1 (no row); its values are ``vals[i]``
+    (n, 18), rows 0-2 of a leaf's transform then its 6 params.  Returns
+    ``(d_objtx (n_slots, 16), d_prim (n_slots, 6))``: zero but for each row
+    r's float64 sums, cast to the values' dtype, in rows 0-2 of
+    ``d_objtx[reduce_slots[r]]`` and in ``d_prim[reduce_slots[r]]``
+    (``n_slots`` defaults to ``n_rows``; every slot must lie below it).
+    Two launches on the same inputs give bit-identical sums.  CUDA tensors
+    launch the kernels (counted in ``row_reduce.launches``); CPU tensors
+    run :func:`row_reduce_plain`.  The main path reaches the kernels
+    through K6, K7 and K8, not through this wrapper."""
+    if vals.device.type == "cpu":
+        return row_reduce_plain(keys, vals, reduce_slots, n_rows, n_slots)
+    _device_check(vals)
+    n_slots = n_rows if n_slots is None else n_slots
+    _check_reduce(keys, vals, reduce_slots, n_rows, n_slots)
+    if vals.data_ptr() % (2 * vals.element_size()):
+        raise ValueError("vals must be aligned to two of its elements")
+    out = _row_reduce_launch(keys, vals, reduce_slots, n_rows, n_slots)
+    row_reduce.launches += 1
+    return out
+
+
+row_reduce.launches = 0
+
+
+def _row_reduce_launch(keys, vals, reduce_slots, n_rows, n_slots):
+    lib = _wide_library()
+    n = keys.shape[0]
+    d_obj = torch.zeros((n_slots, 16), dtype=vals.dtype, device=vals.device)
+    d_prim = torch.zeros((n_slots, 6), dtype=vals.dtype, device=vals.device)
+    scratch = _reduce_scratch(lib.pyrayt_staged_reduce_scratch, n, n_rows, vals.device)
+    fn = lib.pyrayt_row_reduce_f32 if vals.dtype == torch.float32 else lib.pyrayt_row_reduce_f64
+    with torch.cuda.device(vals.device):
+        err = fn(keys.data_ptr(), vals.data_ptr(), n, n_rows, reduce_slots.data_ptr(),
+                 scratch.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(),
+                 torch.cuda.current_stream(vals.device).cuda_stream)
+    _raise_on(lib, err, "row_reduce")
+    return d_obj, d_prim
 
 
 def _reverse_chain(spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold_of,
@@ -1103,14 +1209,14 @@ def _wide_fused_library():
         + [i, p, i]  # plan, scal, n_scal
         + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
         + [p] * 5 + [i]  # d_state0, keys, vals, glass partials, reduce slots; rows
-        + [p] * 6  # row partials, any-winner flag, d_objtx, d_prim, d_glass, stream
+        + [p] * 5  # reduce scratch, d_objtx, d_prim, d_glass, stream
     )
     for name in ("pyrayt_wide_fused_bwd_f32", "pyrayt_wide_fused_bwd_f64"):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.pyrayt_wide_fused_chunks.argtypes = [ctypes.c_longlong, i]
-    lib.pyrayt_wide_fused_chunks.restype = i
+    lib.pyrayt_wide_fused_reduce_scratch.argtypes = [ctypes.c_longlong, i]
+    lib.pyrayt_wide_fused_reduce_scratch.restype = ctypes.c_longlong
     lib.pyrayt_wide_fused_block_threads.argtypes = []
     lib.pyrayt_wide_fused_block_threads.restype = i
     lib.pyrayt_wide_fused_error_string.argtypes = [i]
@@ -1131,19 +1237,18 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, r
     n, g, s_count, m = state0.shape[1], config.generation_limit, spec.n_leaves, glass.shape[0]
     kw = dict(dtype=dtype, device=device)
     d_state0 = torch.empty_like(state0)
+    # the reduce writes rows 0-2 of every leaf's d_objtx and all of d_prim,
+    # reduce_partials all of d_glass: only row 3 needs the zero fill
     d_obj = torch.zeros((s_count, 16), **kw)
-    d_prim = torch.zeros((s_count, 6), **kw)
-    d_glass = torch.zeros((m, matl.N_GLASS_COEFFS), **kw)
+    d_prim = torch.empty((s_count, 6), **kw)
+    d_glass = torch.empty((m, matl.N_GLASS_COEFFS), **kw)
     if n == 0:
-        return d_obj, d_prim, d_glass, d_state0
-    keys = torch.empty((g, n), dtype=torch.int32, device=device)
-    vals = torch.empty((18, g, n), **kw)
+        return d_obj, d_prim.zero_(), d_glass.zero_(), d_state0
+    keys, vals = _reduce_table((g, n), dtype, device)
     blocks = -(-n // lib.pyrayt_wide_fused_block_threads())
     glass_partials = torch.empty((max(1, m * matl.N_GLASS_COEFFS * g * blocks),),
                                  dtype=torch.float64, device=device)
-    row_partials = torch.empty((s_count * lib.pyrayt_wide_fused_chunks(g * n, s_count) * 18,),
-                               dtype=torch.float64, device=device)
-    any_winner = torch.empty((1,), dtype=torch.int32, device=device)
+    scratch = _reduce_scratch(lib.pyrayt_wide_fused_reduce_scratch, g * n, s_count, device)
     program = ft.device_wide_program(spec, device)
     fn = lib.pyrayt_wide_fused_bwd_f32 if dtype == torch.float32 else lib.pyrayt_wide_fused_bwd_f64
     with torch.cuda.device(device):
@@ -1158,8 +1263,8 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, r
             config.ray_offset, config.world_index, config.intensity_threshold,
             int(config.apply_intensity_threshold),
             d_state0.data_ptr(), keys.data_ptr(), vals.data_ptr(), glass_partials.data_ptr(),
-            _all_slots(s_count, device).data_ptr(), s_count, row_partials.data_ptr(),
-            any_winner.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(), d_glass.data_ptr(),
+            _all_slots(s_count, device).data_ptr(), s_count, scratch.data_ptr(),
+            d_obj.data_ptr(), d_prim.data_ptr(), d_glass.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -131,11 +131,10 @@ def supports_fused_wide(spec: SceneSpec) -> bool:
     every scene table in the TPU's scalar memory.  K2 reads the group
     tables from global memory, so that cap has no counterpart here and is
     dropped; only the singles' tables and the program sit in shared memory.
-    Past shared memory, size still costs time: the group backward K6
-    scans every ray's key once per reduce row (one row per leaf of the
-    group), so its reduce grows as leaves x rays until a counting sort by
-    key replaces the scan (ROADMAP).  Scenes above 513 leaves were not
-    measured.
+    The backward's table reduce (``csrc/row_reduce.cuh``) is a counting
+    sort by row key, so its work grows as rays + leaves; its shared-memory
+    row counters cap a group's or K8's reduce at 51,200 leaves.  Scenes
+    above 513 leaves were not measured.
     """
     if not (
         spec.n_leaves > engine.MAX_NARROW_LEAVES
@@ -306,6 +305,7 @@ _WIDE_HEADER = 11
 _GROUP_WIDTH = 8 + 3 * MAX_GROUP_LEAVES
 
 
+@lru_cache(maxsize=64)
 def wide_tables(spec: SceneSpec):
     """Static plan of the wide kernel: ``(order, groups, offsets, slots_flat,
     chunk_offsets, n_chunks)``: the engine's wide plan plus each group's slot
@@ -313,7 +313,8 @@ def wide_tables(spec: SceneSpec):
     group g's start, leaf j of tree t at ``offsets[g] + t * L + j``);
     ``chunk_offsets[g]`` indexes group g's rows of the chunk-AABB table
     (``n_chunks[g]`` of them; 0 = the group runs unchunked, below two
-    chunks of trees)."""
+    chunks of trees).  Cached per spec: the kernels' wrappers check their
+    inputs against it on every call, so callers must not modify it."""
     order, groups = engine.wide_plan(spec)
     offsets, flat, chunk_offsets, n_chunks = [], [], [], []
     total_chunks = 0

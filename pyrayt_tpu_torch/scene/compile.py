@@ -60,6 +60,22 @@ class SceneSpec:
     def n_leaves(self) -> int:
         return len(self.leaf_types)
 
+    def __hash__(self) -> int:
+        # the kernels' wrappers look up their host tables by spec several
+        # times per launch, and a wide scene's nested tuples are slow to
+        # hash: hash once per instance (not pickled, since str hashes differ
+        # between processes)
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = hash(tuple(getattr(self, f.name) for f in dataclasses.fields(self)))
+            object.__setattr__(self, "_hash", h)
+        return h
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_hash", None)
+        return state
+
 
 @dataclasses.dataclass
 class CompiledScene:

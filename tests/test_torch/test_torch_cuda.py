@@ -524,3 +524,73 @@ def test_wide_objective_runs_k2_and_k8(cuda):
         grads.append(g)
     torch.testing.assert_close(grads[0], grads[1], **TOL64)
     assert float(grads[0].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the table reduce of K6, K7 and K8 alone, and inside them
+# ---------------------------------------------------------------------------
+
+from torch_parity_scenes import reduce_inputs, reduce_key_sets  # noqa: E402
+
+REDUCE_KEY_SETS = reduce_key_sets(1 << 17)
+REDUCE_CASES = [(name, dtype) for name in sorted(REDUCE_KEY_SETS)
+                for dtype in (torch.float64, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, dtype", REDUCE_CASES)
+def test_row_reduce_matches_plain(cuda, name, dtype):
+    """The counting-sort reduce against its plain version on the adversarial
+    key sets (every key -1, one row, 4096 rows, a detector-like skew, one
+    entry, a ragged length); two launches bit-identical; NaN values behind
+    the -1 keys are never read."""
+    keys_np, rows = REDUCE_KEY_SETS[name]
+    keys, vals, slots = reduce_inputs(keys_np, rows, dtype, cuda)
+    before = fg.row_reduce.launches
+    kernel = fg.row_reduce(keys, vals, slots, rows, rows + 3)
+    again = fg.row_reduce(keys, vals, slots, rows, rows + 3)
+    assert fg.row_reduce.launches == before + 2
+    plain = fg.row_reduce_plain(keys, vals, slots, rows, rows + 3)
+    torch.cuda.synchronize()
+    for k, a, p in zip(kernel, again, plain):
+        assert torch.equal(k, a)
+        assert_rows_close(k, p, dtype, per_ray=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_row_reduce_is_the_sum_k6_and_k8_end_with(cuda, dtype, monkeypatch):
+    """The reduce alone on the table K6 (and K8) filled gives their table
+    cotangents bit for bit, and its plain version agrees with them."""
+    spec, config, inputs, (rec, masks, fold5, win), carry, d_rec, plan, scal = staged_inputs(
+        "mla6", cuda, dtype)
+    state0, obj_tx, prim, glass, slots, _ = inputs
+    tables = []
+    make = fg._reduce_table
+
+    def keep(*args):
+        tables.append(make(*args))
+        return tables[-1]
+
+    monkeypatch.setattr(fg, "_reduce_table", keep)
+    buf, _, _ = fg.staged_tail_plain(spec, config, state0, rec[0], masks[0], None, fold5[0], glass,
+                                     carry[0], d_rec=d_rec[0])
+    info = fg._group_entry(spec, 0)
+    reduce_slots = slots[info["off"]:info["off"] + info["T"] * info["L"]]
+    d_obj, d_prim, _ = fg.staged_group(spec, 0, buf, win[0], obj_tx, prim, slots)
+    k8 = fg.fused_bwd_wide(spec, config, *inputs, rec, masks, scal=scal, plan=plan)
+    k6_keys, k6_vals = tables[0]
+    k8_keys, k8_vals = (t.reshape(-1, *t.shape[2:]) for t in tables[1])
+    s_count = spec.n_leaves
+    alone = fg.row_reduce(k6_keys, k6_vals, reduce_slots, reduce_slots.numel(), s_count)
+    assert torch.equal(alone[0], d_obj) and torch.equal(alone[1], d_prim)
+    all_slots = torch.arange(s_count, dtype=torch.int32, device=cuda)
+    alone8 = fg.row_reduce(k8_keys, k8_vals, all_slots, s_count)
+    assert torch.equal(alone8[0][:, :12], k8[0][:, :12]) and torch.equal(alone8[1], k8[1])
+    for keys, vals, rs, k in ((k6_keys, k6_vals, reduce_slots, (d_obj, d_prim)),
+                              (k8_keys, k8_vals, all_slots, alone8)):
+        vals = torch.where((keys >= 0)[:, None], vals, 0.0)  # unwritten entries
+        plain = fg.row_reduce_plain(keys, vals, rs, rs.numel(), s_count)
+        for a, b in zip(k, plain):
+            assert_rows_close(a, b, dtype, per_ray=False)
+    assert int((k6_keys >= 0).sum()) > 0 and int((k8_keys >= 0).sum()) > 0

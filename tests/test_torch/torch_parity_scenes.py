@@ -254,3 +254,36 @@ def follows_float64_path(records32, masks32, records64, masks64):
         masks64, records64[:, 5] == records32[:, 5].to(records64.dtype), True
     )
     return (masks32 == masks64).all(dim=0) & same_surface.all(dim=0)
+
+
+def reduce_key_sets(n, seed=0):
+    """Synthetic tables for the wide backward's row reduce: ``{name: (keys
+    (k,) int64, rows)}`` with keys in [-1, rows) (-1: no row), most of
+    ``n`` entries: every key -1; every key one row; keys uniform over 4096
+    rows; a detector-like skew (a third of the entries in one of 513 rows,
+    the rest uniform or -1); one entry; and a length that is a multiple of
+    neither the sort's segment (2048) nor its warp step."""
+    rng = np.random.default_rng(seed)
+    skew = rng.integers(-1, 512, n)
+    skew[rng.random(n) < 1 / 3] = 512
+    return {
+        "all_minus_one": (np.full(n, -1), 16),
+        "one_row": (np.full(n, 5), 16),
+        "uniform_4096": (rng.integers(0, 4096, n), 4096),
+        "detector_skew": (skew, 513),
+        "n_one": (np.array([3]), 16),
+        "ragged": (rng.integers(-1, 40, 3 * 2048 + 333), 40),
+    }
+
+
+def reduce_inputs(keys, rows, dtype, device, seed=1):
+    """(keys int32, vals (k, 18), reduce_slots) for a key set: values
+    standard normal from ``seed``, NaN where the key is -1 (no reduce may
+    read them), the rows' slots a permutation of rows + 3 slots."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((keys.size, 18))
+    vals[keys < 0] = np.nan
+    slots = rng.permutation(rows + 3)[:rows]
+    return (torch.as_tensor(keys, dtype=torch.int32, device=device),
+            torch.as_tensor(vals, dtype=dtype, device=device),
+            torch.as_tensor(slots, dtype=torch.int32, device=device))
