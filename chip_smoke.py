@@ -54,9 +54,14 @@ raises, and any failure exits non-zero:
              2**20 rays (RmsSpotRadius through K5's loss mode, the lenslet
              blur's record cotangent through its generic mode), float64
              and float32, each output at its own scale; then K2 with and
-             without save_fold, K5, K6 and K7 per generation and per step,
-             and their plain versions, CUDA events, beside each kernel's
-             bound;
+             without save_fold (and at float64, and with its cull table
+             read through __ldg instead of shared memory), K5, K6 and K7
+             per generation and per step, and their plain versions, CUDA
+             events, beside each kernel's bound; the group trees a ray
+             evaluates per generation after the chunk skip of the union
+             boxes and after K2's two-level cull on the tight boxes, and
+             the cull's box tests (``cull_counts``), K2's operations bound
+             from the second beside the bound from the first;
 14. wide fused gradients — the main path of this slice, the monolithic
              wide backward K8 (``TraceConfig(wide_grad="fused")``): (a) K8
              against its plain version on the reverse chain of one K2 trace
@@ -69,9 +74,10 @@ raises, and any failure exits non-zero:
              staged backward on the same trace; (c) both 8x8 training
              witnesses of phase 12 through K2 + K8, K8's launches up and the
              staged kernels' none; (d) K8, its plain version and the staged
-             backward per step, CUDA events, beside K8's bound, and the
-             profiler's split of K8's device time (the table reduce's
-             kernels apart);
+             backward per step, CUDA events, beside K8's bound (from the
+             tree-level count, the chunk-level bound beside it), K8 with its
+             cull table read through __ldg, and the profiler's split of
+             K8's device time (the table reduce's kernels apart);
 15. row reduce — the table reduce that K6, K7 and K8 end with
              (``row_reduce``, csrc/row_reduce.cuh) alone against its plain
              version, float64 and float32, two launches bit-identical, on
@@ -148,6 +154,11 @@ TRAIN_N, TRAIN_RAYS, WIDE_TRAIN_STEPS, FULL_STEPS = 8, 1 << 18, 30, 3
 # per staged-backward ray a tail adjoint and a winning tree's re-evaluation
 # with the adjoints of its normal and hit distance
 BOX_TEST = 30
+# K2's and K8's cull since the two-level redesign: a box test (per axis a
+# subtraction and a multiply for each face) and, per ray and group, the
+# reciprocals of v +- slope
+CULL_TEST = 12
+CULL_SETUP = 12
 TAIL_ADJOINT = 250
 TREE_ADJOINT = 250
 
@@ -300,7 +311,7 @@ def staged_kernel_compare(torch, ft, fg, spec, config, inputs, trace, modes, dty
     to K5's record cotangent: ``(keyword arguments of generation g, initial
     carried cotangent)``.  Returns ``hold``'s statistics per kernel
     output."""
-    state0, obj_tx, prim, glass, slots, _ = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
     records, masks, fold5, win = trace
     plan_entries = ft.wide_fold_plan(spec)
     groups = [idx for kind, idx, _ in plan_entries if kind == "group"]
@@ -333,13 +344,22 @@ def staged_kernel_compare(torch, ft, fg, spec, config, inputs, trace, modes, dty
     return stats
 
 
-def trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, stride):
-    """Group trees a ray evaluates per generation it ran after the chunk
-    skip (the box test of ops/fused_trace.py:_box_hit on every chunk),
-    counted with torch ops on every ``stride``-th ray of this run's trace."""
-    state0, _, _, _, _, aabb = inputs
+def cull_counts(torch, ft, spec, inputs, records, masks, fg, stride):
+    """The group trees a ray evaluates per generation it ran, counted with
+    torch ops on every ``stride``-th ray of this run's trace: ``chunk``,
+    after the chunk skip on the JAX-equal union boxes (the TPU's scan,
+    ops/fused_trace.py:_box_hit on every chunk, then every tree of the
+    chunks it enters); ``tree``, after the two-level cull of K2 and K8 on
+    the tight boxes (``cull_hit_plain``: the chunks whose box the ray
+    enters, then the trees whose box it enters); ``box_tests``, the box
+    tests that cull runs (every chunk's, then every tree's of the chunks it
+    enters).  The kernels' prune of boxes entered past the best hit can
+    only lower ``tree`` and ``box_tests``: they count without it."""
+    state0, aabb, cull = inputs[0], inputs[5], inputs[6]
     ran = fg.generations_ran(records, masks)[:, ::stride]
-    total, count = 0, 0
+    offsets = ft.cull_offsets(spec)[0]
+    total = {"chunk": 0, "tree": 0, "box_tests": 0}
+    count = 0
     for g in range(records.shape[0]):
         if g == 0:
             p, v = state0[0:3, ::stride], state0[4:7, ::stride]
@@ -348,18 +368,26 @@ def trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, stride
         sel = ran[g]
         p, v = p[:, sel], v[:, sel]
         count += int(sel.sum())
-        for kind, _, info in ft.wide_fold_plan(spec):
-            if kind != "group":
+        for gi, (kind, _, info) in enumerate(
+                [e for e in ft.wide_fold_plan(spec) if e[0] == "group"]):
+            t_count, nc, off = info["T"], info["n_chunks"], offsets[gi]
+            slope = cull[off, :3]
+            trees = ft.cull_hit_plain(cull[off + 1 + nc:off + 1 + nc + t_count], slope, p, v)
+            if nc == 0:
+                total["chunk"] += t_count * p.shape[1]
+                total["box_tests"] += t_count * p.shape[1]
+                total["tree"] += int(trees.sum())
                 continue
-            if info["n_chunks"] == 0:
-                total += info["T"] * p.shape[1]
-                continue
-            for c in range(info["n_chunks"]):
+            chunks = ft.cull_hit_plain(cull[off + 1:off + 1 + nc], slope, p, v)
+            total["box_tests"] += nc * p.shape[1]
+            for c in range(nc):
                 t0 = c * ft.WIDE_CHUNK_TREES
-                trees = min(t0 + ft.WIDE_CHUNK_TREES, info["T"]) - t0
+                t1 = min(t0 + ft.WIDE_CHUNK_TREES, t_count)
                 hit = ft._box_hit(aabb[info["chunk_off"] + c], p, v)
-                total += trees * int(hit.sum())
-    return total / max(count, 1)
+                total["chunk"] += (t1 - t0) * int(hit.sum())
+                total["box_tests"] += (t1 - t0) * int(chunks[c].sum())
+                total["tree"] += int((trees[t0:t1] & chunks[c]).sum())
+    return {k: v / max(count, 1) for k, v in total.items()}
 
 
 def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective, optimize,
@@ -427,17 +455,23 @@ def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective
 
 
 def fold_ops(torch, ft, fg, spec, inputs, records, masks):
-    """``(trees, ops)``: the group trees a ray evaluates per generation it
-    ran after the chunk skip (every 16th ray counted), and the wide fold's
-    operations per ray and generation run: the single trees' leaves, the
-    chunk-box tests, those trees' leaves and the winner's INTERACT."""
-    trees = trees_per_ray_generation(torch, ft, spec, inputs, records, masks, fg, 16)
+    """``(counts, ops, chunk_ops)``: :func:`cull_counts` on every 16th ray,
+    and the wide fold's operations per ray and generation run: the single
+    trees' leaves, the winner's INTERACT, and either the two-level cull's
+    box tests and the leaves of the trees whose tight boxes the ray enters
+    (``ops``, the work these inputs need of K2 and K8) or, as counted before
+    the cull, every chunk's box test and the leaves of every tree of the
+    chunks it enters (``chunk_ops``)."""
+    counts = cull_counts(torch, ft, spec, inputs, records, masks, fg, 16)
     group_info = [info for kind, _, info in ft.wide_fold_plan(spec) if kind == "group"][0]
     tree_ops = sum(LOCAL_RAY + INTERSECT[t] for t in group_info["types_pos"])
     single_ops = sum(LOCAL_RAY + INTERSECT[spec.leaf_types[s]]
                      for kind, _, info in ft.wide_fold_plan(spec) if kind == "single"
                      for s in info["slots"])
-    return trees, single_ops + INTERACT + BOX_TEST * group_info["n_chunks"] + trees * tree_ops
+    base = single_ops + INTERACT
+    ops = base + CULL_SETUP + CULL_TEST * counts["box_tests"] + counts["tree"] * tree_ops
+    chunk_ops = base + BOX_TEST * group_info["n_chunks"] + counts["chunk"] * tree_ops
+    return counts, ops, chunk_ops
 
 
 def log(*parts):
@@ -864,12 +898,24 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
                               dtype=torch.float32)
     spec = scene.spec
     inputs = ft.wide_kernel_inputs(spec, scene.params, rays16)
-    state0, obj_tx, prim, glass, slots, aabb = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
     k2_ms = cuda_ms(torch, lambda: ft.fused_trace_wide(spec, grad_config, *inputs))
     k2_fold_ms = cuda_ms(torch, lambda: ft.fused_trace_wide(spec, grad_config, *inputs,
                                                             save_fold=True))
     k2_plain_ms = cuda_ms(torch, lambda: ft.fused_trace_wide_plain(spec, grad_config, *inputs),
                           repeats=1, warmup=0)
+    # the cull table read through __ldg instead of shared memory
+    shared_limit, ft.CULL_SHARED_BYTES = ft.CULL_SHARED_BYTES, 0
+    k2_ldg_ms = cuda_ms(torch, lambda: ft.fused_trace_wide(spec, grad_config, *inputs))
+    ft.CULL_SHARED_BYTES = shared_limit
+    # float64 on the same grid
+    with fresh_ids():
+        scene64 = compile_scene(mla_system(comp, pyrayt, MLA_N)[0], device=device,
+                                dtype=torch.float64)
+    inputs64 = ft.wide_kernel_inputs(scene64.spec, scene64.params,
+                                     grid.generate_rays(N_RAYS, device=device, dtype=torch.float64))
+    k2_f64_ms = cuda_ms(torch, lambda: ft.fused_trace_wide(scene64.spec, grad_config, *inputs64))
+    del scene64, inputs64
     records, masks, _, fold5, win = ft.fused_trace_wide(spec, grad_config, *inputs, save_fold=True)
     plan = fg.loss_plan(rms)
     scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
@@ -909,17 +955,21 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     assert identical, "two staged backward launches at full width differ"
     for k, v in saved.items():
         counters[k].launches = v
-    trees, k2_ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
+    counts, k2_ray_ops, k2_chunk_ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
     item = 4
     ran_total = int(ran.sum())
     # K2: every generation's records (zeros where a ray stopped), masks,
     # state in and out, the scene tables; with save_fold fold5 and win
-    tables = item * (22 * spec.n_leaves + 7 * glass.shape[0]) + 4 * slots.numel()
+    tables = (item * (22 * spec.n_leaves + 7 * glass.shape[0] + 6 * inputs[6].shape[0])
+              + 4 * slots.numel())
     k2_bytes = item * (15 * g_count * n + 2 * 13 * n) + g_count * n + tables
     k2_fold_bytes = k2_bytes + (item * 5 + 4) * g_count * n
     k2_ops = ran_total * k2_ray_ops
     k2_bound = bound(k2_bytes, k2_ops)
     k2_fold_bound = bound(k2_fold_bytes, k2_ops)
+    # the bound as counted before the two-level cull (every tree of the
+    # chunks a ray enters), for the before-and-after yardstick
+    k2_chunk_bound = bound(k2_bytes, ran_total * k2_chunk_ray_ops)
     # K5 per step: per generation, 15 record and 5 fold rows of the rays
     # that ran, the masks, 11 carried rows in, 10 buf and 11 carried rows out
     # (state0's 11 rows at generation 0)
@@ -939,9 +989,11 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
               "k7": bound(k7_bytes, k7_ops)}
     card = card_line()
     log(f"wide times ({MLA_N}x{MLA_N}, {N_RAYS} rays x {g_count} generations, {ran_total} "
-        f"ray-generations run, float32, median): K2 {k2_ms:.4f} ms, with save_fold "
-        f"{k2_fold_ms:.4f} ms, plain {k2_plain_ms:.2f} ms; group trees evaluated per ray and "
-        f"generation after the chunk skip {trees:.2f} (of {group_info['T']}); staged backward per "
+        f"ray-generations run, float32, median): K2 {k2_ms:.4f} ms (cull table through __ldg "
+        f"{k2_ldg_ms:.4f}; float64 {k2_f64_ms:.4f}), with save_fold "
+        f"{k2_fold_ms:.4f} ms, plain {k2_plain_ms:.2f} ms; group trees per ray and generation "
+        f"(of {group_info['T']}): {counts['chunk']:.2f} after the chunk skip, {counts['tree']:.2f} "
+        f"after the two-level cull, with {counts['box_tests']:.2f} box tests; staged backward per "
         f"step {step_bwd_ms:.4f} ms (K5 {step['k5_ms']:.4f}, K6 {step['k6_ms']:.4f}, K7 "
         f"{step['k7_ms']:.4f}); plain per step "
         f"{json.dumps(plain_step)}; on {card}")
@@ -951,6 +1003,8 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
 
     log("wide bounds: " + json.dumps({
         "fused_trace_wide": bound_entry(k2_bytes, k2_ops, k2_bound),
+        "fused_trace_wide_chunk_level": bound_entry(k2_bytes, ran_total * k2_chunk_ray_ops,
+                                                    k2_chunk_bound),
         "fused_trace_wide_save_fold": bound_entry(k2_fold_bytes, k2_ops, k2_fold_bound),
         "staged_tail": bound_entry(k5_bytes, k5_ops, bounds["k5"]),
         "staged_group": bound_entry(k6_bytes, k6_ops, bounds["k6"]),
@@ -999,12 +1053,13 @@ def k8_bytes(spec, inputs, records, masks, ran, generic):
     also the mask of each generation run), 11 state0 rows in and 13
     d_state0 rows out, the scene tables; the generic mode adds 15 d_records
     rows per generation run and 11 d_fstate rows."""
-    state0, _, _, glass, slots, aabb = inputs
+    state0, glass, slots, cull = inputs[0], inputs[3], inputs[4], inputs[6]
     item = state0.element_size()
     g_count, n = masks.shape
     ran_total = int(ran.sum())
     skip_checks = int((masks[:-1] & ~ran[1:]).sum())
-    tables = item * (22 * spec.n_leaves + 7 * glass.shape[0] + 6 * aabb.shape[0]) + 4 * slots.numel()
+    tables = (item * (22 * spec.n_leaves + 7 * glass.shape[0] + 6 * cull.shape[0])
+              + 4 * slots.numel())
     loss = item * (15 * ran_total + 3 * skip_checks + 24 * n) + (g_count - 1) * n + ran_total + tables
     return loss - ran_total + item * (15 * ran_total + 11 * n) if generic else loss
 
@@ -1027,7 +1082,7 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
             spec = scene.spec
             rays = grid.generate_rays(N_RAYS, device=device, dtype=dtype)
             inputs = ft.wide_kernel_inputs(spec, scene.params, rays)
-            state0, obj_tx, prim, glass, slots, _ = inputs
+            state0, obj_tx, prim, glass, slots = inputs[:5]
             records, masks, fstate, fold5, win = ft.fused_trace_wide(spec, config, *inputs,
                                                                      save_fold=True)
             plan = fg.loss_plan(metrics.RmsSpotRadius(det_id))
@@ -1093,16 +1148,25 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
                 t["k8_event_minus_device_ms"] = t["k8_rms_loss_mode_ms"] - t["k8_device_ms"]
                 times[tag] = t
                 ran = fg.generations_ran(records, masks)
-                trees, ray_ops = fold_ops(torch, ft, fg, spec, inputs, records, masks)
+                kw = modes["rms_loss_mode"]
+                shared_limit, ft.CULL_SHARED_BYTES = ft.CULL_SHARED_BYTES, 0
+                t["k8_rms_loss_mode_ldg_ms"] = cuda_ms(torch,
+                                                       lambda: fg.fused_bwd_wide(*args, **kw))
+                ft.CULL_SHARED_BYTES = shared_limit
+                counts, ray_ops, chunk_ray_ops = fold_ops(torch, ft, fg, spec, inputs, records,
+                                                          masks)
                 winners = int((win >= 0).sum())
-                ops = int(ran.sum()) * (ray_ops + TAIL_ADJOINT) + winners * TREE_ADJOINT
                 bounds[tag] = {}
-                for label, generic in (("rms_loss_mode", False), ("blur_generic", True)):
-                    n_bytes = k8_bytes(spec, inputs, records, masks, ran, generic)
-                    bnd = bound(n_bytes, ops)
-                    bounds[tag][label] = {"bytes": n_bytes, "ops": ops, "ms": bnd[0], "by": bnd[1]}
+                for level, per_ray in (("", ray_ops), ("chunk_level_", chunk_ray_ops)):
+                    ops = int(ran.sum()) * (per_ray + TAIL_ADJOINT) + winners * TREE_ADJOINT
+                    for label, generic in (("rms_loss_mode", False), ("blur_generic", True)):
+                        n_bytes = k8_bytes(spec, inputs, records, masks, ran, generic)
+                        bnd = bound(n_bytes, ops)
+                        bounds[tag][level + label] = {"bytes": n_bytes, "ops": ops, "ms": bnd[0],
+                                                      "by": bnd[1]}
                 log(f"wide fused times ({tag}, {int(ran.sum())} ray-generations run, {winners} "
-                    f"with a hit, {trees:.2f} group trees per ray and generation, median): "
+                    f"with a hit, group trees per ray and generation {json.dumps(counts)}, "
+                    "median): "
                     + json.dumps(t) + "; bounds " + json.dumps(bounds[tag]) + f" on {card_line()}")
             del scene, rays, inputs, records, masks, fstate, fold5, win, d_records, modes
             torch.cuda.empty_cache()
@@ -1200,7 +1264,7 @@ def row_reduce_phase(torch, np, pyrayt, comp, metrics, ft, fg, TraceConfig, fres
         spec = scene.spec
         rays = grid.generate_rays(N_RAYS, device=device, dtype=dtype)
         inputs = ft.wide_kernel_inputs(spec, scene.params, rays)
-        state0, obj_tx, prim, glass, slots, _ = inputs
+        state0, obj_tx, prim, glass, slots = inputs[:5]
         records, masks, _, fold5, win = ft.fused_trace_wide(spec, config, *inputs, save_fold=True)
         plan = fg.loss_plan(metrics.RmsSpotRadius(float(detector.get_id())))
         scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))

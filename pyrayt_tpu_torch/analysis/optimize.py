@@ -42,7 +42,9 @@ def build_objective(
     call, and the scene's params take the rays' dtype and device: the rays
     decide where the objective runs, nothing is moved.
 
-    Dispatch (``ops.fused_trace.pick_fused``, the rule of ``trace()``): CUDA
+    Dispatch (``ops.fused_grad.pick_fused_grad``: the rule of ``trace()``,
+    ``ops.fused_trace.pick_fused``, plus the limits of the wide backward's
+    table reduce, past which a scene runs the plain engine): CUDA
     rays with a supported scene run the kernels, the loss-fused K3 for a
     recognized descriptor (``RmsSpotRadius``, ``FocusError``,
     ``SoftFocusError``) and the generic K4 otherwise (a wide scene: K2,
@@ -52,7 +54,6 @@ def build_objective(
     with autograd.  ``config`` is forced to ``fixed_loop=True``.
     """
     from pyrayt_tpu_torch.ops import fused_grad
-    from pyrayt_tpu_torch.ops import fused_trace as ft
 
     config = config or TraceConfig(fixed_loop=True)
     if not config.fixed_loop:
@@ -64,7 +65,7 @@ def build_objective(
             components = build_fn(theta)
             scene = compile_scene(components, device=rays.device, dtype=rays.dtype)
         spec, materials = scene.spec, scene.materials
-        if ft.pick_fused(spec, config, rays.device):
+        if fused_grad.pick_fused_grad(spec, config, rays.device, rays.n_rays):
             if fused_loss:
                 value = fused_grad.build_fused_value_and_grad_fn(spec, materials, config, loss_fn)
                 return value(scene.params, rays)

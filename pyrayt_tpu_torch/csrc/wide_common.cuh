@@ -1,18 +1,31 @@
 // Device code shared by the wide forward kernel (wide_trace.cu, K2) and the
 // wide backward kernels (wide_grad.cu K5-K7, wide_fused_grad.cu K8): the
-// wide scene program's views, its shared-memory copy, the per-ray chunk-box
-// test and the wide nearest-hit fold.
+// wide scene program's views, its shared-memory copy, the per-ray cull
+// tests and the wide nearest-hit fold.
 //
 // The wide program (ops/fused_trace.py:wide_program) is the narrow scene
 // program's instruction stream in wide fold order, where a GROUP
 // instruction folds one group of same-shape interval trees, plus the
 // tables the fold needs.  A block copies everything but the per-leaf table
 // into shared memory, together with the object transforms and params of
-// the single (ungrouped) trees' leaves, at most 32, renumbered compactly.
-// The groups' tables (transforms, params, the sorted slot vector, the chunk
-// boxes and the per-leaf table) stay in global memory and are read through
-// the read-only path: 513 leaves x 22 values is 45 KB at float32 and 90 KB
-// at float64, too much to copy per block.
+// the single (ungrouped) trees' leaves, at most 32, renumbered compactly,
+// and the cull table where it fits (ops/fused_trace.py:CULL_SHARED_BYTES).
+// The groups' leaf tables (transforms, params, the sorted slot vector and
+// the per-leaf table) stay in global memory and are read through the
+// read-only path (__ldg): 513 leaves x 22 values is 45 KB at float32 and
+// 90 KB at float64, too much to copy per block.
+//
+// The fold culls in two levels (ops/fused_trace.py:wide_tight_boxes): per
+// group a ray tests each chunk's box, then inside a chunk it enters each
+// tree's box, and evaluates only the trees whose box it enters.  A tree's
+// box folds its interval opcodes (the intersection of its loaded and
+// intersected leaves' boxes), so a lenslet's box is its 1 x 1 x 0.25 mm
+// aperture, not the 4 mm box of its sphere: on the 16x16 microlens array a
+// ray evaluates about one tree per generation where the union boxes of the
+// TPU's chunk scan let it evaluate 61.  The boxes are tested as cones: box
+// grown by the group's slope times t, which bounds how far the
+// intersectors' near-parallel conventions let a leaf's interval stray from
+// its box, with reciprocal directions computed once per ray and group.
 
 #pragma once
 
@@ -35,11 +48,13 @@ enum WideField {
 };
 
 // one group row: T trees of L leaves; leaf j of sorted tree t is slot
-// slots[slot_off + t L + j]; chunk boxes aabb[chunk_off .. + n_chunks) (0:
-// unchunked); tree t's win code is code_base + t; per leaf position the
-// interval opcode, the needs-normal OR over the members, the primitive type
+// slots[slot_off + t L + j]; n_chunks chunks of 16 sorted trees (0:
+// unchunked); tree t's win code is code_base + t; the group's rows of the
+// cull table start at cull_off: its slope, its n_chunks chunk boxes, its T
+// tree boxes; per leaf position the interval opcode, the needs-normal OR
+// over the members, the primitive type
 struct Group {
-  int n_trees, n_leaves, slot_off, chunk_off, n_chunks, code_base;
+  int n_trees, n_leaves, slot_off, chunk_off, n_chunks, code_base, cull_off;
   const int* op;
   const int* needs;
   const int* type;
@@ -47,7 +62,7 @@ struct Group {
 
 __device__ __forceinline__ Group group_at(const int* prog, int g) {
   const int* r = prog + prog[W_GROUPS_OFF] + kGroupWidth * g;
-  return {r[0], r[1], r[2], r[3], r[4], r[5], r + 8, r + 8 + kMaxGroupLeaves,
+  return {r[0], r[1], r[2], r[3], r[4], r[5], r[6], r + 8, r + 8 + kMaxGroupLeaves,
           r + 8 + 2 * kMaxGroupLeaves};
 }
 
@@ -58,19 +73,23 @@ struct WideScene {
   const int* leaf;        // (S, 5) per-leaf table: type, mat slot, scale, needs, id
   const T* objtx;         // (S, 16) object transforms
   const T* prim;          // (S, 6)
-  const int* slots;       // the sorted flat slot vector
-  const T* aabb;          // (chunks, 6) chunk boxes
+  const int* slots;       // the sorted flat slot vector (global)
+  const T* cull;          // (rows, 6) cull table: shared or global
+  bool cull_shared;       // cull points into shared memory
 };
 
-// shared-memory bytes of load_wide_scene
+// shared-memory bytes of load_wide_scene (cull_rows: the cull table's rows
+// when it is copied, else 0)
 template <typename T>
-size_t wide_smem_bytes(int prefix_len, int n_single_leaves, int n_glass) {
-  return sizeof(T) * (22 * static_cast<size_t>(n_single_leaves) + 7 * static_cast<size_t>(n_glass)) +
+size_t wide_smem_bytes(int prefix_len, int n_single_leaves, int n_glass, int cull_rows) {
+  return sizeof(T) * (22 * static_cast<size_t>(n_single_leaves) + 7 * static_cast<size_t>(n_glass) +
+                      6 * static_cast<size_t>(cull_rows)) +
          sizeof(int) * (5 * static_cast<size_t>(n_single_leaves) + static_cast<size_t>(prefix_len));
 }
 
-// Copy the program prefix, the single leaves' compact tables and the glass
-// rows into the block's shared memory; every thread of the block calls it.
+// Copy the program prefix, the single leaves' compact tables, the glass
+// rows and, with cull_shared, the cull table's cull_rows rows into the
+// block's shared memory; every thread of the block calls it.
 // No pointer of the wide kernels is __restrict__: the intersectors read a
 // leaf's tables through one pointer that may point into shared memory (a
 // single) or global memory (a group).  Built at -O3 with __restrict__ kernel
@@ -82,11 +101,12 @@ __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
                                         int prefix_len, int ns, const T* objtx,
                                         const T* prim, const T* glass,
                                         int n_glass, const int* slots,
-                                        const T* aabb) {
+                                        const T* cull, int cull_rows, bool cull_shared) {
   T* s_objtx = reinterpret_cast<T*>(smem);
   T* s_prim = s_objtx + 16 * ns;
   T* s_glass = s_prim + 6 * ns;
-  int* s_leaf = reinterpret_cast<int*>(s_glass + 7 * n_glass);
+  T* s_cull = s_glass + 7 * n_glass;
+  int* s_leaf = reinterpret_cast<int*>(s_cull + (cull_shared ? 6 * cull_rows : 0));
   int* s_prog = s_leaf + 5 * ns;
   const int* singles = program + program[W_SINGLES_OFF];  // [global slot, type] per leaf
   const int* leaf_table = program + program[W_LEAF_OFF];
@@ -101,6 +121,9 @@ __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
     s_leaf[k] = leaf_table[5 * singles[2 * (k / 5)] + k % 5];
   }
   for (int k = threadIdx.x; k < 7 * n_glass; k += blockDim.x) s_glass[k] = glass[k];
+  if (cull_shared) {
+    for (int k = threadIdx.x; k < 6 * cull_rows; k += blockDim.x) s_cull[k] = cull[k];
+  }
   __syncthreads();
   WideScene<T> ws;
   ws.singles.objtx = s_objtx;
@@ -116,7 +139,8 @@ __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
   ws.objtx = objtx;
   ws.prim = prim;
   ws.slots = slots;
-  ws.aabb = aabb;
+  ws.cull = cull_shared ? s_cull : cull;
+  ws.cull_shared = cull_shared;
   return ws;
 }
 
@@ -126,33 +150,75 @@ __device__ __forceinline__ int single_slot(const WideScene<T>& ws, int c) {
   return ws.prog[ws.prog[W_SINGLES_OFF] + 2 * c];
 }
 
-// Does the ray (p, v) meet the box [lo_xyz, hi_xyz] at a positive t?  The
-// per-ray counterpart of the JAX kernel's per-block _block_any_hit, with its
-// zero-direction conventions (a ray parallel to a slab is inside it or
-// misses).  The box grows by 64 ulps of its coordinates so rounding here
-// never rejects a real hit at the rim: the growth changes only what is
-// skipped, never a candidate (ops/fused_trace.py:_box_hit is the same test).
+// value k of the cull table
 template <typename T>
-__device__ __forceinline__ bool box_hit(const T* box, const T p[3], const T v[3]) {
-  const T eps = sizeof(T) == 4 ? T(FLT_EPSILON) : T(DBL_EPSILON);
-  T tmin = -inf_v<T>(), tmax = inf_v<T>();
+__device__ __forceinline__ T cull_at(const WideScene<T>& ws, int k) {
+  return ws.cull_shared ? ws.cull[k] : __ldg(ws.cull + k);
+}
+
+// A ray's view of one group's cull boxes.  Each box (padded by 64 ulps of
+// its coordinates on the host, as the JAX kernel's _block_any_hit pads) is
+// tested as the cone lo - s t <= p + t v <= hi + s t for t > 0, s the
+// group's slope: per axis t (v + s) >= lo - p and t (v - s) <= hi - p.  The
+// reciprocals r1 = 1 / (v + s), r2 = 1 / (v - s) are taken once per ray
+// and group, so a box test multiplies.  Axis class: 0 when v > s (the
+// first bound is the entry, the second the exit), 1 when v < -s (the
+// reverse), 2 when |v| <= s (both are entries).  A zero v + s or v - s
+// gets the infinity of its class, so (lo - p) r is +-inf by the side the
+// origin lies on, or NaN where it lies on the face, which mn/mx drop: a ray
+// parallel to a slab is inside it or misses (ops/fused_trace.py:_box_hit).
+template <typename T>
+struct RayCull {
+  T p[3], r1[3], r2[3];
+  int cls[3];
+};
+
+template <typename T>
+__device__ __forceinline__ void ray_cull(const WideScene<T>& ws, const Group& G, const T p[3],
+                                         const T v[3], RayCull<T>& rc) {
   for (int a = 0; a < 3; ++a) {
-    const T pad = T(64) * eps * (T(1) + fabs(box[a]) + fabs(box[3 + a]));
-    const T lo = box[a] - pad, hi = box[3 + a] + pad;
-    T a_lo, a_hi;
-    if (v[a] == T(0)) {
-      const bool inside = p[a] >= lo && p[a] <= hi;
-      a_lo = inside ? -inf_v<T>() : inf_v<T>();
-      a_hi = inside ? inf_v<T>() : -inf_v<T>();
-    } else {
-      const T t0 = (lo - p[a]) / v[a], t1 = (hi - p[a]) / v[a];
-      a_lo = mn(t0, t1);
-      a_hi = mx(t0, t1);
-    }
-    tmin = mx(tmin, a_lo);
-    tmax = mn(tmax, a_hi);
+    const T s = cull_at(ws, 6 * G.cull_off + a);
+    const T u1 = v[a] + s, u2 = v[a] - s;
+    rc.p[a] = p[a];
+    rc.r1[a] = u1 == T(0) ? inf_v<T>() : T(1) / u1;
+    rc.r2[a] = u2 == T(0) ? -inf_v<T>() : T(1) / u2;
+    rc.cls[a] = u2 > T(0) ? 0 : (u1 < T(0) ? 1 : 2);
   }
-  return tmax >= tmin && tmax > T(0);
+}
+
+// Does the ray enter box row `row` of the cull table at some t > 0 no later
+// than `best`?  A box it enters after best holds no winner: the fold keeps
+// strict <, and every candidate of the box's trees lies inside it.
+template <typename T>
+__device__ __forceinline__ bool cull_hit(const WideScene<T>& ws, int row, const RayCull<T>& rc,
+                                         T best) {
+  T tmin = -inf_v<T>(), tmax = inf_v<T>();
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T x = (cull_at(ws, 6 * row + a) - rc.p[a]) * rc.r1[a];
+    const T y = (cull_at(ws, 6 * row + 3 + a) - rc.p[a]) * rc.r2[a];
+    const int c = rc.cls[a];
+    tmin = mx(tmin, c == 1 ? y : x);
+    if (c == 2) {
+      tmin = mx(tmin, y);
+    } else {
+      tmax = mn(tmax, c == 0 ? y : x);
+    }
+  }
+  return tmin <= tmax && tmax > T(0) && tmin < inf_v<T>() && !(tmin > best);
+}
+
+// sorted (entry, exit) pair of group leaf slot s (type `type`), its tables
+// read through the read-only path
+template <typename T>
+__device__ __forceinline__ Pair<T> group_leaf_pair(const WideScene<T>& ws, int type, int s,
+                                                   const T p[3], const T v[3]) {
+  T m[12], pr[6];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) m[k] = __ldg(ws.objtx + 16 * s + k);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) pr[k] = __ldg(ws.prim + 6 * s + k);
+  return leaf_pair_at(type, m, pr, p, v);
 }
 
 // the intervals of sorted tree t of group G for the ray (p, v); ts[j] is
@@ -163,10 +229,44 @@ __device__ __forceinline__ void group_tree(const WideScene<T>& ws, const Group& 
                                            Intervals<T>& iv) {
   iv.n = 0;
   for (int j = 0; j < G.n_leaves; ++j) {
-    const int s = ws.slots[G.slot_off + t * G.n_leaves + j];
+    const int s = __ldg(ws.slots + G.slot_off + t * G.n_leaves + j);
     ts[j] = s;
-    iv_apply(iv, G.op[j], leaf_pair_at(G.type[j], ws.objtx + 16 * s, ws.prim + 6 * s, p, v), j);
+    iv_apply(iv, G.op[j], group_leaf_pair(ws, G.type[j], s, p, v), j);
   }
+}
+
+// The nearest positive candidate of sorted tree t of group G whose opcodes
+// are IV_LOAD then IV_AND only (every lens and lenslet): its one interval
+// in registers, with iv_apply's and nearest_of's arithmetic and tie rules.
+// Returns the distance (inf: none) and the winning leaf position (-1).
+template <typename T>
+__device__ __forceinline__ T group_tree_and(const WideScene<T>& ws, const Group& G, int t,
+                                            const T p[3], const T v[3], int& pos) {
+  T lo = inf_v<T>(), hi = inf_v<T>();
+  int lo_id = 0, hi_id = 0;
+  for (int j = 0; j < G.n_leaves; ++j) {
+    const Pair<T> b = group_leaf_pair(ws, G.type[j], __ldg(ws.slots + G.slot_off + t * G.n_leaves + j),
+                                      p, v);
+    if (j == 0) {
+      lo = b.lo;
+      hi = b.hi;
+      lo_id = hi_id = 0;
+    } else {
+      const T nlo = mx(lo, b.lo), nhi = mn(hi, b.hi);
+      lo_id = b.lo > lo ? j : lo_id;
+      hi_id = b.hi < hi ? j : hi_id;
+      const bool empty = nlo > nhi;
+      lo = empty ? inf_v<T>() : nlo;
+      hi = empty ? inf_v<T>() : nhi;
+    }
+  }
+  T best = inf_v<T>();
+  pos = -1;
+  const T c0 = lo > T(0) ? lo : inf_v<T>();
+  if (c0 < best) { best = c0; pos = lo_id; }
+  const T c1 = hi > T(0) ? hi : inf_v<T>();
+  if (c1 < best) { best = c1; pos = hi_id; }
+  return best;
 }
 
 // the nearest positive candidate of interval list iv: distance and
@@ -195,9 +295,12 @@ struct WideHit {
 };
 
 // Wide nearest hit: singles fold in program order, each group's sorted
-// trees chunk by chunk in ascending order, a ray skipping a chunk whose box
-// it misses; strict < throughout, so the first of equal candidates wins (a
-// group tree's ties go to the lower sorted index, as in the JAX kernel).
+// trees in ascending order, a ray skipping a chunk whose box it does not
+// enter before its best hit so far, and inside a chunk each tree whose box
+// it does not enter before it; strict < throughout, so the first of equal
+// candidates wins (a group tree's ties go to the lower sorted index, as in
+// the JAX kernel).  A skipped tree has no positive candidate at or before
+// the best, so the winner and its win code are those of the unculled fold.
 template <typename T>
 __device__ void wide_nearest(const WideScene<T>& ws, const T p[3], const T v[3], WideHit<T>& h) {
   h.best = inf_v<T>();
@@ -216,26 +319,56 @@ __device__ void wide_nearest(const WideScene<T>& ws, const T p[3], const T v[3],
       [&](const int* in) {
         const int g = in[1];
         const Group G = group_at(ws.prog, g);
-        const int n_spans = G.n_chunks > 0 ? G.n_chunks : 1;
-        for (int c = 0; c < n_spans; ++c) {
-          int t0 = 0, t1 = G.n_trees;
+        bool and_only = true;
+        for (int j = 1; j < G.n_leaves; ++j) and_only = and_only && G.op[j] == IV_AND;
+        RayCull<T> rc;
+        ray_cull(ws, G, p, v, rc);
+        const int tree_row = G.cull_off + 1 + G.n_chunks;
+        // the boxes of up to 32 chunks, then of a chunk's trees, are tested
+        // into a bit mask before any tree is evaluated (independent tests,
+        // which the compiler overlaps); the set bits run in ascending order
+        for (int c0 = 0; c0 < max(G.n_chunks, 1); c0 += 32) {
+          unsigned chunks = 1u;
           if (G.n_chunks > 0) {
-            if (!box_hit(ws.aabb + 6 * (G.chunk_off + c), p, v)) continue;
-            t0 = c * kChunkTrees;
-            t1 = min(t0 + kChunkTrees, G.n_trees);
+            chunks = 0u;
+            const int cn = min(32, G.n_chunks - c0);
+            for (int k = 0; k < cn; ++k) {
+              chunks |= static_cast<unsigned>(cull_hit(ws, G.cull_off + 1 + c0 + k, rc, h.best)) << k;
+            }
           }
-          for (int t = t0; t < t1; ++t) {
-            Intervals<T> iv;
-            int ts[kMaxGroupLeaves];
-            group_tree(ws, G, t, p, v, ts, iv);
-            int pos;
-            const T d = nearest_of(iv, pos);
-            if (d < h.best) {
-              h.best = d;
-              h.win = G.code_base + t;
-              h.leaf = ts[pos];
-              h.group = g;
-              h.pos = pos;
+          while (chunks != 0u) {
+            const int c = c0 + __ffs(static_cast<int>(chunks)) - 1;
+            chunks &= chunks - 1u;
+            const int t0 = G.n_chunks > 0 ? c * kChunkTrees : 0;
+            const int t1 = G.n_chunks > 0 ? min(t0 + kChunkTrees, G.n_trees) : G.n_trees;
+            for (int b0 = t0; b0 < t1; b0 += 32) {
+              unsigned trees = 0u;
+              const int bn = min(32, t1 - b0);
+#pragma unroll 16
+              for (int k = 0; k < bn; ++k) {
+                trees |= static_cast<unsigned>(cull_hit(ws, tree_row + b0 + k, rc, h.best)) << k;
+              }
+              while (trees != 0u) {
+                const int t = b0 + __ffs(static_cast<int>(trees)) - 1;
+                trees &= trees - 1u;
+                int pos;
+                T d;
+                if (and_only) {
+                  d = group_tree_and(ws, G, t, p, v, pos);
+                } else {
+                  Intervals<T> iv;
+                  int ts[kMaxGroupLeaves];
+                  group_tree(ws, G, t, p, v, ts, iv);
+                  d = nearest_of(iv, pos);
+                }
+                if (d < h.best) {
+                  h.best = d;
+                  h.win = G.code_base + t;
+                  h.leaf = __ldg(ws.slots + G.slot_off + t * G.n_leaves + pos);
+                  h.group = g;
+                  h.pos = pos;
+                }
+              }
             }
           }
         }

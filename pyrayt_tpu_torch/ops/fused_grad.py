@@ -79,6 +79,8 @@ __all__ = [
     "LossPlan",
     "loss_plan",
     "wide_grad_mode",
+    "reduce_takes",
+    "pick_fused_grad",
     "generations_ran",
     "fused_bwd",
     "fused_bwd_plain",
@@ -294,7 +296,8 @@ def wide_grad_mode(spec: SceneSpec, config: TraceConfig) -> str:
     groups' tables from global memory.  What grows is device memory, 18
     values per ray and generation for its table sums, whose counting-sort
     reduce does work in proportion to generations x rays + leaves (at most
-    51,200 leaves: ``csrc/row_reduce.cuh``)."""
+    51,200 leaves and 2**31 - 1 entries, ``csrc/row_reduce.cuh``;
+    :func:`reduce_takes`)."""
     if ft.supports_fused(spec):
         return "narrow"
     mode = config.wide_grad
@@ -303,6 +306,51 @@ def wide_grad_mode(spec: SceneSpec, config: TraceConfig) -> str:
     if mode == "fused":
         return "fused"
     raise ValueError(f"unknown wide_grad mode {mode!r}")
+
+
+# the table reduce's limits (csrc/row_reduce.cuh: kMaxReduceRows, int32
+# entry indices)
+MAX_REDUCE_ROWS = 51200
+MAX_REDUCE_ENTRIES = 2**31 - 1
+
+
+def reduce_takes(spec: SceneSpec, config: TraceConfig, n_rays: int) -> bool:
+    """Whether the table reduce of the scene's wide backward takes a trace
+    of ``n_rays`` rays and ``config.generation_limit`` generations on the
+    route :func:`wide_grad_mode` picks: the staged route sums each group's
+    leaves (T x L rows) and the singles' over ``n_rays`` entries per
+    launch, K8 every leaf over generations x rays entries in one launch;
+    the reduce takes at most ``MAX_REDUCE_ROWS`` rows and
+    ``MAX_REDUCE_ENTRIES`` entries.  A narrow scene has no reduce (True).
+    Reads the spec's plan only, so it decides before anything is built."""
+    mode = wide_grad_mode(spec, config)
+    if mode == "narrow":
+        return True
+    if mode == "fused":
+        rows, entries = spec.n_leaves, config.generation_limit * n_rays
+    else:
+        plan = ft.wide_fold_plan(spec)
+        rows = max([info["T"] * info["L"] for kind, _, info in plan if kind == "group"]
+                   + [sum(len(info["slots"]) for kind, _, info in plan if kind == "single")])
+        entries = n_rays
+    return rows <= MAX_REDUCE_ROWS and entries <= MAX_REDUCE_ENTRIES
+
+
+def pick_fused_grad(spec: SceneSpec, config: TraceConfig, device, n_rays: int) -> bool:
+    """The gradient's dispatch rule (``analysis.build_objective``):
+    ``ops.fused_trace.pick_fused``, and for a wide scene also
+    :func:`reduce_takes`: a scene past the reduce's limits differentiates
+    the plain engine, as the JAX package routes scenes past its kernels'
+    cap to its XLA engine.  ``use_fused=True`` raises there."""
+    if not ft.pick_fused(spec, config, device):
+        return False
+    if reduce_takes(spec, config, n_rays):
+        return True
+    if config.use_fused is True:
+        raise ValueError(
+            f"use_fused=True, but the backward's table reduce takes at most {MAX_REDUCE_ROWS} "
+            f"rows and {MAX_REDUCE_ENTRIES} entries")
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -921,8 +969,8 @@ def _reduce_scratch(scratch_bytes, n, rows, device):
     the library's helper (``scratch_bytes``, -1 past the reduce's limits)."""
     size = scratch_bytes(n, rows)
     if size < 0:
-        raise ValueError(f"the table reduce takes at most 51200 rows (kMaxReduceRows) and "
-                         f"2**31 - 1 entries, got {rows} rows and {n} entries")
+        raise ValueError(f"the table reduce takes at most {MAX_REDUCE_ROWS} rows (kMaxReduceRows) "
+                         f"and 2**31 - 1 entries, got {rows} rows and {n} entries")
     return torch.empty((size,), dtype=torch.uint8, device=device)
 
 
@@ -1167,14 +1215,15 @@ def _recomputed_fold(spec, state0, records, masks, obj_tx, prim, slots, aabb, g)
     return fold5, win
 
 
-def fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
-                         d_records=None, d_fstate=None, scal=None, plan=None):
+def fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records,
+                         masks, d_records=None, d_fstate=None, scal=None, plan=None):
     """Plain PyTorch version of :func:`fused_bwd_wide` (same signature and
     outputs): the staged chain's plain versions (:func:`staged_tail_plain`,
     :func:`staged_group_plain`, :func:`staged_singles_plain`) on a fold
-    recomputed per generation (:func:`~pyrayt_tpu_torch.ops.fused_trace.wide_fold_plain`)
-    instead of one saved by the forward."""
-    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+    recomputed per generation (:func:`~pyrayt_tpu_torch.ops.fused_trace.wide_fold_plain`,
+    which culls by ``aabb``; ``cull`` is checked and not read) instead of
+    one saved by the forward."""
+    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
                       d_records, d_fstate, scal, plan)
 
     def singles(spec, buf, win, obj_tx, prim, slots):
@@ -1186,12 +1235,14 @@ def fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb,
         (staged_tail_plain, staged_group_plain, singles), d_records, d_fstate, scal, plan)
 
 
-def _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+def _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
                       d_records, d_fstate, scal, plan):
     if not ft.supports_fused_wide(spec):
         raise ValueError(
             "scene has non-packed materials or no batchable tree groups; use the plain engine")
-    ft._check_wide(spec, state0, obj_tx, prim, glass, slots, aabb)
+    if cull is None:
+        raise ValueError("K8 needs the cull table of wide_cull_tables")
+    ft._check_wide(spec, state0, obj_tx, prim, glass, slots, aabb, cull)
     if (plan is None) == (d_records is None) or (d_records is None) != (d_fstate is None):
         raise ValueError("give d_records and d_fstate (generic mode) or scal and plan (loss mode)")
     _check(spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate,
@@ -1205,7 +1256,8 @@ def _wide_fused_library():
     args = (
         [p, ctypes.c_longlong, i]  # state0, n, generations
         + [p] * 4 + [i] * 3  # objtx, prim, glass, program; prefix_len, n_single_leaves, n_glass
-        + [p] * 6  # slots, aabb, records, masks, d_records, d_fstate
+        + [p] * 2 + [i] * 2  # slots, cull; cull rows, cull in shared memory
+        + [p] * 4  # records, masks, d_records, d_fstate
         + [i, p, i]  # plan, scal, n_scal
         + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
         + [p] * 5 + [i]  # d_state0, keys, vals, glass partials, reduce slots; rows
@@ -1229,7 +1281,7 @@ def _all_slots(n_leaves, device):
     return torch.arange(n_leaves, dtype=torch.int32, device=device)
 
 
-def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, records, masks,
                        d_records, d_fstate, scal, plan):
     """Launch K8 and its reduces; returns its four outputs."""
     lib = _wide_fused_library()
@@ -1254,8 +1306,8 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, r
     with torch.cuda.device(device):
         err = fn(
             state0.data_ptr(), n, g, obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(),
-            program.data_ptr(), *ft.wide_program_sizes(spec), m, slots.data_ptr(), aabb.data_ptr(),
-            records.data_ptr(), masks.data_ptr(),
+            program.data_ptr(), *ft.wide_program_sizes(spec), m, slots.data_ptr(), cull.data_ptr(),
+            cull.shape[0], int(ft.cull_in_shared(cull)), records.data_ptr(), masks.data_ptr(),
             d_records.data_ptr() if plan is None else None,
             d_fstate.data_ptr() if plan is None else None,
             -1 if plan is None else plan.kind, scal.data_ptr() if plan is not None else None,
@@ -1273,12 +1325,13 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, r
     return d_obj, d_prim, d_glass, d_state0
 
 
-def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
                    d_records=None, d_fstate=None, scal=None, plan=None):
     """K8, the monolithic wide backward: ``(d_objtx (S, 16), d_prim (S, 6),
     d_glass (M, 7), d_state0 (13, n))`` of a K2 trace (``records``,
     ``masks`` from :func:`~pyrayt_tpu_torch.ops.fused_trace.fused_trace_wide`
-    on the same inputs, ``slots`` and ``aabb`` its runtime tables), given
+    on the same inputs, ``slots``, ``aabb`` and ``cull`` its tables from
+    :func:`~pyrayt_tpu_torch.ops.fused_trace.wide_cull_tables`), given
     the record and final-state cotangents (``d_records`` (G, 15, n),
     ``d_fstate`` (13, n)) or a loss plan and its scalar row (``plan``,
     ``scal``).  It needs no saved fold: per generation each ray recomputes
@@ -1287,11 +1340,11 @@ def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, recor
     tensors run :func:`fused_bwd_wide_plain`."""
     if state0.device.type == "cpu":
         return fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb,
-                                    records, masks, d_records, d_fstate, scal, plan)
+                                    cull, records, masks, d_records, d_fstate, scal, plan)
     _device_check(state0)
-    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
                       d_records, d_fstate, scal, plan)
-    out = _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, aabb, records,
+    out = _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, records,
                              masks, d_records, d_fstate, scal, plan)
     fused_bwd_wide.launches += 1
     return out
@@ -1306,9 +1359,9 @@ class _WideLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, world, prim, glass, state0, spec, config, plan):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        slots, aabb, cull = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
         records, masks, _, fold5, win = ft.fused_trace_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, save_fold=True)
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, save_fold=True)
         scal = plan.scalars(records, masks)
         ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, records, masks, fold5,
                               win, scal)
@@ -1332,9 +1385,9 @@ class _WideTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, world, prim, glass, state0, spec, config):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        slots, aabb, cull = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
         records, masks, fstate, fold5, win = ft.fused_trace_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, save_fold=True)
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, save_fold=True)
         ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, records, masks, fold5, win)
         ctx.args = (spec, config)
         ctx.mark_non_differentiable(masks)
@@ -1357,21 +1410,20 @@ class _WideFusedLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, world, prim, glass, state0, spec, config, plan):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
-        records, masks, _ = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass, slots,
-                                                aabb)
+        tables = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        records, masks, _ = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass, *tables)
         scal = plan.scalars(records, masks)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, aabb, records, masks,
-                              scal)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, *tables, records, masks, scal)
         ctx.args = (spec, config, plan)
         return plan.value(scal).clone()
 
     @staticmethod
     def backward(ctx, g):
-        world, prim, glass, state0, obj_tx, slots, aabb, records, masks, scal = ctx.saved_tensors
+        world, prim, glass, state0, obj_tx, slots, aabb, cull, records, masks, scal = \
+            ctx.saved_tensors
         spec, config, plan = ctx.args
         d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
             scal=plan.row(scal, g), plan=plan)
         return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
 
@@ -1382,10 +1434,10 @@ class _WideFusedTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, world, prim, glass, state0, spec, config):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb = ft.wide_runtime_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+        tables = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
         records, masks, fstate = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass,
-                                                     slots, aabb)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, aabb, records, masks)
+                                                     *tables)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, *tables, records, masks)
         ctx.args = (spec, config)
         ctx.mark_non_differentiable(masks)
         return records, masks, fstate
@@ -1393,10 +1445,10 @@ class _WideFusedTrace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_records, d_masks, d_fstate):
         del d_masks
-        world, prim, glass, state0, obj_tx, slots, aabb, records, masks = ctx.saved_tensors
+        world, prim, glass, state0, obj_tx, slots, aabb, cull, records, masks = ctx.saved_tensors
         spec, config = ctx.args
         d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, records, masks,
+            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
             d_records=d_records.contiguous(), d_fstate=d_fstate.contiguous())
         return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
 

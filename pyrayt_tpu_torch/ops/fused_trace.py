@@ -39,7 +39,9 @@ The wide kernel (``csrc/wide_trace.cu``) replaces the Pallas kernel of
 ``pyrayt_tpu/ops/fused_trace.py:_make_step_wide``.  Its host tables
 (:func:`wide_tables`, :func:`wide_runtime_tables`, :func:`leaf_meta_table`,
 :func:`wide_fold_plan`) equal the JAX package's, so its win codes name the
-same trees; its scene program is :func:`wide_program`.  :func:`fused_trace_wide`,
+same trees; its scene program is :func:`wide_program`, and it culls by the
+port's own tight boxes (:func:`wide_tight_boxes`, packed by
+:func:`wide_cull_tables`).  :func:`fused_trace_wide`,
 its plain version :func:`fused_trace_wide_plain` and the kernel share the
 per-ray exit contract above, and with ``save_fold`` also return the fold
 (``fold5``, ``win``) the staged backward reads.
@@ -133,8 +135,11 @@ def supports_fused_wide(spec: SceneSpec) -> bool:
     dropped; only the singles' tables and the program sit in shared memory.
     The backward's table reduce (``csrc/row_reduce.cuh``) is a counting
     sort by row key, so its work grows as rays + leaves; its shared-memory
-    row counters cap a group's or K8's reduce at 51,200 leaves.  Scenes
-    above 513 leaves were not measured.
+    row counters cap a group's or K8's reduce at 51,200 leaves, and its
+    int32 indices at 2**31 - 1 entries.  The gradient's dispatch
+    (``ops.fused_grad.pick_fused_grad``) sends a scene past those limits to
+    the plain engine; the trace keeps K2.  Scenes above 513 leaves were not
+    measured.
     """
     if not (
         spec.n_leaves > engine.MAX_NARROW_LEAVES
@@ -159,9 +164,10 @@ def pick_fused(spec: SceneSpec, config: TraceConfig, device) -> bool:
     supported (narrow: K1 and K3/K4; wide: K2 and K5-K7 or K8); ``True`` demands
     them and raises for an unsupported scene or for tensors that are not on
     a CUDA device; ``False`` never picks them.  The backward kernels cover
-    every scene their forward kernel covers, so one rule serves the trace
-    and the gradient (the TPU rule's VMEM budgets have no counterpart
-    here).
+    the scenes their forward kernel covers up to the limits of their table
+    reduce (at most 51,200 rows and 2**31 - 1 entries): the gradient's rule,
+    ``ops.fused_grad.pick_fused_grad``, adds that test to this one (the TPU
+    rule's VMEM budgets have no counterpart here).
     """
     device = torch.device(device)
     use = config.use_fused
@@ -368,6 +374,82 @@ def _leaf_world_aabb(type_code, pr, world):
     return wc - wh, wc + wh
 
 
+# Slope of the cone that bounds each primitive's solid interval in object
+# space, per local axis: the intersectors (csrc/trace_common.cuh) decide a
+# ray that is nearly parallel to a face or an axis by its origin alone
+# (``isclose0`` of a direction component, 1e-8, or of a cylinder's
+# d_x^2 + d_y^2, so |d_xy| <= 1e-4), and the ray's points on such an
+# interval then stray from the leaf's box by at most that slope times t.
+# Doubled for rounding.  A paraboloid is not bounded (below).
+_CULL_SLOPE = {
+    prim_mod.SPHERE: (0.0, 0.0, 0.0),
+    prim_mod.PLANE: (2e-8, 2e-8, 0.0),
+    prim_mod.CUBE: (2e-8, 2e-8, 2e-8),
+    prim_mod.CYLINDER: (2e-4, 2e-4, 2e-8),
+}
+
+
+def _chunk_union(lo3, hi3):
+    """``(chunks, 6)`` unions of consecutive ``WIDE_CHUNK_TREES`` boxes of
+    the sorted ``(T, 3)`` corners (no rows for an unchunked group, T < 32)."""
+    t_count, chunk = lo3.shape[0], WIDE_CHUNK_TREES
+    nc = -(-t_count // chunk) if t_count >= 2 * chunk else 0
+    pad = max(nc * chunk - t_count, 0)
+    s_min = torch.cat((lo3, lo3.new_full((pad, 3), INF)))[:nc * chunk].reshape(nc, chunk, 3)
+    s_max = torch.cat((hi3, hi3.new_full((pad, 3), -INF)))[:nc * chunk].reshape(nc, chunk, 3)
+    return torch.cat((s_min.min(dim=1).values, s_max.max(dim=1).values), dim=1)
+
+
+def _wide_box_pass(spec: SceneSpec, params, dtype):
+    """One pass over the groups: ``(slots, aabb, tight)`` where ``slots``
+    and ``aabb`` are :func:`wide_runtime_tables`' and ``tight`` is per
+    group ``(tree_box (T, 6), chunk_box (chunks, 6), slope (3,))`` of
+    :func:`wide_tight_boxes`."""
+    _, groups, offsets, slots_flat, chunk_offsets, n_chunks = wide_tables(spec)
+    device = params["world"].device
+    slots_out = torch.as_tensor(slots_flat, device=device).clone()
+    aabb = torch.zeros((max(sum(n_chunks), 1), 6), dtype=dtype, device=device)
+    world = params["world"].detach().to(dtype)
+    prims = params["prim"].detach().to(dtype)
+    tight_out = []
+    for gi, (template, types_pos, slot_matrix) in enumerate(groups):
+        nc = n_chunks[gi]
+        t_count, l_count = len(slot_matrix), len(types_pos)
+        slots_t = torch.as_tensor(slot_matrix, dtype=torch.long, device=device)
+        kw = dict(dtype=dtype, device=device)
+        mins = torch.full((t_count, 3), INF, **kw)
+        maxs = torch.full((t_count, 3), -INF, **kw)
+        t_min = torch.full((t_count, 3), -INF, **kw)  # the tight box, folded by opcode
+        t_max = torch.full((t_count, 3), INF, **kw)
+        slope = torch.zeros((3,), **kw)
+        ops = [op for op, _ in _interval_chain(template)]
+        for j in range(l_count):
+            sj = slots_t[:, j]
+            lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
+            mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
+            k_local = _CULL_SLOPE.get(types_pos[j])
+            if ops[j] == IV_SUB or k_local is None:
+                continue  # IV_SUB keeps the box; an unbounded leaf tightens nothing
+            t_min, t_max = torch.maximum(t_min, lo), torch.minimum(t_max, hi)
+            a = world[sj, :3, :3].abs()
+            k_world = torch.stack([a[:, i, 0] * k_local[0] + a[:, i, 1] * k_local[1]
+                                   + a[:, i, 2] * k_local[2] for i in range(3)], dim=1)
+            slope = torch.maximum(slope, k_world.max(dim=0).values)
+        if nc:  # an unchunked group keeps its trees in index order
+            centers = (mins + maxs) / 2
+            spread = centers.max(dim=0).values - centers.min(dim=0).values
+            perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
+            off = offsets[gi]
+            slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
+        else:
+            perm = torch.arange(t_count, device=device)
+        if nc:
+            aabb[chunk_offsets[gi]:chunk_offsets[gi] + nc] = _chunk_union(mins[perm], maxs[perm])
+        tree_box = torch.cat((t_min, t_max), dim=1)[perm]
+        tight_out.append((tree_box, _chunk_union(t_min[perm], t_max[perm]), slope))
+    return slots_out, aabb, tuple(tight_out)
+
+
 def wide_runtime_tables(spec: SceneSpec, params, dtype):
     """Call-time wide tables from the scene params: the spatially sorted
     flat slot vector (int32) and the chunk AABBs ``(chunks, 6)`` as
@@ -380,39 +462,87 @@ def wide_runtime_tables(spec: SceneSpec, params, dtype):
     ``jnp.argsort`` does), and chunk boxes are min/maxes over the sorted
     order.  Not differentiable: the tables only order and skip work.
     """
-    _, groups, offsets, slots_flat, chunk_offsets, n_chunks = wide_tables(spec)
-    device = params["world"].device
-    slots_out = torch.as_tensor(slots_flat, device=device).clone()
-    total_chunks = sum(n_chunks)
-    if total_chunks == 0:
-        return slots_out, torch.zeros((1, 6), dtype=dtype, device=device)
-    aabb = torch.zeros((total_chunks, 6), dtype=dtype, device=device)
-    world = params["world"].detach().to(dtype)
-    prims = params["prim"].detach().to(dtype)
-    chunk = WIDE_CHUNK_TREES
-    for gi, (_, types_pos, slot_matrix) in enumerate(groups):
-        nc = n_chunks[gi]
-        if nc == 0:
-            continue
-        t_count, l_count = len(slot_matrix), len(types_pos)
-        slots_t = torch.as_tensor(slot_matrix, dtype=torch.long, device=device)
-        mins = torch.full((t_count, 3), INF, dtype=dtype, device=device)
-        maxs = torch.full((t_count, 3), -INF, dtype=dtype, device=device)
-        for j in range(l_count):
-            sj = slots_t[:, j]
-            lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
-            mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
-        centers = (mins + maxs) / 2
-        spread = centers.max(dim=0).values - centers.min(dim=0).values
-        perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
-        off = offsets[gi]
-        slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
-        pad = nc * chunk - t_count
-        s_min = torch.cat((mins[perm], mins.new_full((pad, 3), INF))).reshape(nc, chunk, 3)
-        s_max = torch.cat((maxs[perm], maxs.new_full((pad, 3), -INF))).reshape(nc, chunk, 3)
-        aabb[chunk_offsets[gi]:chunk_offsets[gi] + nc] = torch.cat(
-            (s_min.min(dim=1).values, s_max.max(dim=1).values), dim=1)
-    return slots_out, aabb
+    slots, aabb, _ = _wide_box_pass(spec, params, dtype)
+    return slots, aabb
+
+
+def wide_tight_boxes(spec: SceneSpec, params, dtype):
+    """The cull boxes of the wide kernels K2 and K8, per group in fold
+    order: ``(tree_box (T, 6), chunk_box (chunks, 6), slope (3,))``.
+    ``tree_box`` holds each tree's conservative world box in the sorted
+    order of :func:`wide_runtime_tables`' slot vector, ``chunk_box`` the
+    union of its 16 trees' boxes (no rows for an unchunked group), rows
+    ``[lo_xyz, hi_xyz]``.  Port only (the JAX package culls by the loose
+    chunk boxes alone); not differentiable.
+
+    A tree's box folds its interval opcodes: ``IV_LOAD`` starts from the
+    leaf's box (:func:`_leaf_world_aabb`), ``IV_AND`` intersects it with
+    the leaf's box, ``IV_SUB`` keeps it (a difference only removes points).
+    An empty intersection leaves ``lo > hi``.  A candidate of the tree is
+    an endpoint of its interval list, which lies inside the interval of
+    every loaded or intersected leaf, so the rule is sound where a leaf's
+    box holds the leaf's whole solid interval.  From the intersectors of
+    ``csrc/trace_common.cuh``:
+
+    * sphere: the chord between the two roots lies in the ball; a ray with
+      ``isclose0(|d|^2)`` misses.  Bounded.
+    * cube: per axis the slab between its two face parameters; an axis with
+      ``isclose0(d_a)`` is decided by the origin alone, so the ray may
+      stray |t| |d_a| <= 1e-8 |t| outside the slab.  Bounded up to that.
+    * cylinder: the quadratic's chord lies inside the radius, and the slab
+      clip bounds z.  With ``isclose0(d_x^2 + d_y^2)`` (|d_xy| <= 1e-4) the
+      radial test is the origin's (``isclose0(b)``) or the linear root
+      ``-c / b``, whose point has radius^2 = r^2 + a t^2: either way within
+      r + 1e-4 |t|; a parallel slab strays 1e-8 |t|.  Bounded up to that.
+    * plane: z = 0 exactly at ``-o_z / d_z`` (``isclose0(d_z)`` misses);
+      x and y as the cube's slabs.  Bounded up to 1e-8 |t|.
+    * paraboloid: NOT bounded.  With ``isclose0(a)`` and ``isclose0(b)``
+      the linear root is ``-c / (b + 1)``, a value unrelated to the
+      surface (b cancels to 1e-8 for a near-axial ray whose origin lies
+      far off the axis), and the slab clip then keeps a segment at any
+      radius.  A paraboloid leaf tightens nothing.
+
+    ``slope`` bounds those strays in world space for the whole group: per
+    world axis the largest ``|A| k`` over the tightening leaves (``k`` the
+    local slopes, ``_CULL_SLOPE``, ``A`` the leaf's world rotation and
+    scale).  The kernels test a ray against each box grown by ``slope * t``
+    at parameter t > 0, which the strays never leave.
+    """
+    return _wide_box_pass(spec, params, dtype)[2]
+
+
+def _pad_box(box):
+    """The box grown by ``_box_hit``'s 64 ulps of its coordinates."""
+    eps = torch.finfo(box.dtype).eps
+    pad = 64 * eps * (1 + box[:, :3].abs() + box[:, 3:].abs())
+    return torch.cat((box[:, :3] - pad, box[:, 3:] + pad), dim=1)
+
+
+def wide_cull_tables(spec: SceneSpec, params, dtype):
+    """K2's and K8's call-time tables: ``(slots, aabb, cull)``, the first
+    two :func:`wide_runtime_tables`' and ``cull`` (rows, 6) the packed cull
+    table of :func:`wide_tight_boxes`, computed in the same pass.  Group g's
+    rows start at ``cull_offsets(spec)[g]`` (the wide program's group
+    field 6): its slope ``[s_x, s_y, s_z, 0, 0, 0]``, its chunk boxes, its
+    tree boxes, each box padded as ``_box_hit`` pads (64 ulps)."""
+    slots, aabb, tight = _wide_box_pass(spec, params, dtype)
+    rows = []
+    for tree_box, chunk_box, slope in tight:
+        rows += [torch.cat((slope, slope.new_zeros(3)))[None], _pad_box(chunk_box),
+                 _pad_box(tree_box)]
+    return slots, aabb, torch.cat(rows).contiguous()
+
+
+@lru_cache(maxsize=64)
+def cull_offsets(spec: SceneSpec):
+    """Each group's first row in :func:`wide_cull_tables`' ``cull`` and the
+    table's row count: ``(offsets, rows)``."""
+    _, groups, _, _, _, n_chunks = wide_tables(spec)
+    offsets, rows = [], 0
+    for (_, _, slot_matrix), nc in zip(groups, n_chunks):
+        offsets.append(rows)
+        rows += 1 + nc + len(slot_matrix)
+    return tuple(offsets), rows
 
 
 def _wide_needs_normal(spec: SceneSpec, slot: int) -> bool:
@@ -502,8 +632,9 @@ def wide_program(spec: SceneSpec) -> np.ndarray:
     n_single_leaves, n_groups, groups_offset, singles_offset,
     leaf_table_offset, n_single_trees, single_trees_offset]``; the material
     kinds; ``n_instr`` instructions of 6 ints; per group ``[T, L,
-    slot_offset, chunk_offset, n_chunks, code_base, 0, 0, op[8], needs[8],
-    type[8]]`` (``op[j]`` the interval op that applies leaf position j,
+    slot_offset, chunk_offset, n_chunks, code_base, cull_offset, 0, op[8],
+    needs[8], type[8]]`` (``cull_offset`` the group's first row in
+    :func:`wide_cull_tables`' table, ``op[j]`` the interval op that applies leaf position j,
     ``needs[j]`` the position's needs-normal OR); per single leaf
     ``[global slot, type]``; per single tree ``[code, first instruction,
     end instruction]``; the comparator pairs; then the leaf table of
@@ -547,7 +678,7 @@ def wide_program(spec: SceneSpec) -> np.ndarray:
         pad = [0] * (MAX_GROUP_LEAVES - l_count)
         group_rows.extend(
             [t_count, l_count, info["off"], info["chunk_off"], info["n_chunks"],
-             info["code_base"], 0, 0]
+             info["code_base"], cull_offsets(spec)[0][idx], 0]
             + [op for op, _ in chain] + pad
             + [int(x) for x in info["needs_pos"]] + pad
             + list(info["types_pos"]) + pad
@@ -824,6 +955,33 @@ def _box_hit(box, p, v):
     return (tmax >= tmin) & (tmax > 0)
 
 
+def cull_hit_plain(boxes, slope, p, v):
+    """(k, n) bool: does each ray (``p``, ``v`` (3, n)) enter each padded
+    cull box (``boxes`` (k, 6) rows of :func:`wide_cull_tables`) grown by
+    ``slope`` (3,) times t at some t > 0?  The plain version of the
+    kernels' box test (csrc/wide_common.cuh: ray_cull, cull_hit) without
+    their distance prune: per axis t (v + s) >= lo - p and t (v - s) <= hi
+    - p."""
+    inf = torch.full_like(p[0], INF)
+    tmin = -inf.expand(boxes.shape[0], -1)
+    tmax = inf.expand(boxes.shape[0], -1)
+    for a in range(3):
+        u1, u2 = v[a] + slope[a], v[a] - slope[a]
+        r1 = torch.where(u1 == 0, INF, 1 / torch.where(u1 == 0, 1.0, u1))
+        r2 = torch.where(u2 == 0, -INF, 1 / torch.where(u2 == 0, 1.0, u2))
+        x = (boxes[:, a, None] - p[a]) * r1
+        y = (boxes[:, 3 + a, None] - p[a]) * r2
+        entry_x = u1 >= 0  # v > s, or |v| <= s
+        entry_y = u2 <= 0  # v < -s, or |v| <= s
+        # a NaN bound (the origin on the face of a parallel slab) binds nothing
+        low = torch.where(entry_x & ~torch.isnan(x), x, -INF)
+        low = torch.maximum(low, torch.where(entry_y & ~torch.isnan(y), y, -INF))
+        high = torch.where((u2 > 0) & ~torch.isnan(y), y, INF)
+        high = torch.where((u1 < 0) & ~torch.isnan(x), x, high)
+        tmin, tmax = torch.maximum(tmin, low), torch.minimum(tmax, high)
+    return (tmin <= tmax) & (tmax > 0) & (tmin < INF)
+
+
 def wide_fold_plain(spec: SceneSpec, obj_tx, prim, slots, aabb, p, v):
     """The wide nearest-hit fold on rays ``p``, ``v`` (4, k): ``(best_d (k,),
     best_n (4, k), best_mat (k,), best_pub (k,), win (k,) int32, leaf (k,)
@@ -946,7 +1104,7 @@ def wide_tail(spec: SceneSpec, config: TraceConfig, glass, best_d, best_n, best_
     return nxt, record, living
 
 
-def _check_wide(spec, state, obj_tx, prim, glass, slots, aabb):
+def _check_wide(spec, state, obj_tx, prim, glass, slots, aabb, cull=None):
     check_inputs(spec, state, obj_tx, prim, glass)
     total_chunks = max(1, sum(wide_tables(spec)[5]))
     if slots.dtype != torch.int32 or slots.device != state.device or not slots.is_contiguous():
@@ -958,13 +1116,20 @@ def _check_wide(spec, state, obj_tx, prim, glass, slots, aabb):
             or tuple(aabb.shape) != (total_chunks, 6)):
         raise ValueError(
             f"aabb must be contiguous {state.dtype} ({total_chunks}, 6) on {state.device}")
+    rows = cull_offsets(spec)[1]
+    if cull is not None and (cull.dtype != state.dtype or cull.device != state.device
+                             or not cull.is_contiguous() or tuple(cull.shape) != (rows, 6)):
+        raise ValueError(f"cull must be contiguous {state.dtype} ({rows}, 6) on {state.device}")
 
 
 def fused_trace_wide_plain(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass,
-                           slots, aabb, save_fold: bool = False):
+                           slots, aabb, cull=None, save_fold: bool = False):
     """Plain PyTorch version of :func:`fused_trace_wide` (same signature,
     same outputs): :func:`wide_fold_plain` then :func:`wide_tail` per
     generation, with the per-ray exit contract of the module docstring.
+    It culls by the JAX-equal chunk boxes ``aabb`` alone (``cull``, the
+    kernel's tight boxes, is checked and not read): the tight boxes change
+    only what is skipped, never a candidate.
     With ``save_fold`` it also returns ``fold5`` (G, 5, n) = [best_d,
     n_xyz, best_mat] and ``win`` (G, n) int32, zero and -1 for generations
     a ray did not run."""
@@ -972,7 +1137,7 @@ def fused_trace_wide_plain(spec: SceneSpec, config: TraceConfig, state, obj_tx, 
         raise ValueError(
             "scene has non-packed materials or no batchable tree groups; use the plain engine"
         )
-    _check_wide(spec, state, obj_tx, prim, glass, slots, aabb)
+    _check_wide(spec, state, obj_tx, prim, glass, slots, aabb, cull)
     n, g_limit = state.shape[1], config.generation_limit
     kw = dict(dtype=state.dtype, device=state.device)
     records = torch.zeros((g_limit, engine.N_RECORD_COLS, n), **kw)
@@ -1011,7 +1176,8 @@ def _wide_library():
     args = (
         [p, ctypes.c_longlong, i]  # state, n, generations
         + [p] * 4 + [i] * 3  # obj_tx, prim, glass, program; prefix_len, n_single_leaves, n_glass
-        + [p] * 7  # slots, aabb, records, masks, final state, fold5, win
+        + [p] * 7  # slots, cull, records, masks, final state, fold5, win
+        + [i] * 2  # cull rows, cull in shared memory
         + [d] * 3 + [i, p]  # ray_offset, world_index, intensity_threshold; apply, stream
     )
     for name in ("pyrayt_fused_trace_wide_f32", "pyrayt_fused_trace_wide_f64"):
@@ -1028,6 +1194,17 @@ def device_wide_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(wide_program(spec), device=device)
 
 
+# K2 and K8 copy the cull table into each block's shared memory up to this
+# size (the 16x16 array's is 273 rows: 6.4 KB at float32, 12.8 KB at
+# float64) and read a larger one through the read-only cache
+CULL_SHARED_BYTES = 16 * 1024
+
+
+def cull_in_shared(cull) -> bool:
+    """Whether the kernels hold ``cull`` in shared memory."""
+    return cull.numel() * cull.element_size() <= CULL_SHARED_BYTES
+
+
 def wide_program_sizes(spec: SceneSpec):
     """``(prefix_len, n_single_leaves)`` of the wide program: the length of
     the part the kernels copy into shared memory (all but the per-leaf
@@ -1037,23 +1214,26 @@ def wide_program_sizes(spec: SceneSpec):
 
 
 def fused_trace_wide(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass, slots,
-                     aabb, save_fold: bool = False):
+                     aabb, cull=None, save_fold: bool = False):
     """K2: trace ``state`` (13, n) through a wide scene
     (:func:`supports_fused_wide`): ``(records (G, 15, n), masks (G, n)
     bool, final state (13, n))``, plus ``(fold5 (G, 5, n), win (G, n)
     int32)`` with ``save_fold`` (the staged backward's forward).
 
-    ``slots`` and ``aabb`` are :func:`wide_runtime_tables` of the same
-    params.  On CUDA tensors this launches the kernel and counts the launch
-    in ``fused_trace_wide.launches``; on CPU tensors it runs
-    :func:`fused_trace_wide_plain`.
+    ``slots``, ``aabb`` and ``cull`` are :func:`wide_cull_tables` of the
+    same params; the kernel culls by ``cull``, the plain version by
+    ``aabb``.  On CUDA tensors this launches the kernel (``cull`` is
+    required) and counts the launch in ``fused_trace_wide.launches``; on
+    CPU tensors it runs :func:`fused_trace_wide_plain`.
     """
     if state.device.type == "cpu":
         return fused_trace_wide_plain(spec, config, state, obj_tx, prim, glass, slots, aabb,
-                                      save_fold)
+                                      cull, save_fold)
     if state.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
-    _check_wide(spec, state, obj_tx, prim, glass, slots, aabb)
+    if cull is None:
+        raise ValueError("the kernel needs the cull table of wide_cull_tables")
+    _check_wide(spec, state, obj_tx, prim, glass, slots, aabb, cull)
     program = device_wide_program(spec, state.device)
     n, g = state.shape[1], config.generation_limit
     kw = dict(dtype=state.dtype, device=state.device)
@@ -1073,9 +1253,10 @@ def fused_trace_wide(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, 
             state.data_ptr(), n, g,
             obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
             *wide_program_sizes(spec), glass.shape[0],
-            slots.data_ptr(), aabb.data_ptr(),
+            slots.data_ptr(), cull.data_ptr(),
             records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
             fold5.data_ptr() if save_fold else None, win.data_ptr() if save_fold else None,
+            cull.shape[0], int(cull_in_shared(cull)),
             config.ray_offset, config.world_index, config.intensity_threshold,
             int(config.apply_intensity_threshold),
             torch.cuda.current_stream(state.device).cuda_stream,
@@ -1093,9 +1274,9 @@ fused_trace_wide.launches = 0
 
 def wide_kernel_inputs(spec: SceneSpec, params, rays: RaySet):
     """K2's inputs from scene params and rays: :func:`kernel_inputs` plus
-    ``(slots, aabb)`` from :func:`wide_runtime_tables`."""
+    ``(slots, aabb, cull)`` from :func:`wide_cull_tables`."""
     inputs = kernel_inputs(params, rays)
-    return inputs + wide_runtime_tables(spec, params, rays.dtype)
+    return inputs + wide_cull_tables(spec, params, rays.dtype)
 
 
 @lru_cache(maxsize=64)

@@ -88,7 +88,7 @@ def main() -> int:
     records, masks, _ = ft.fused_trace_wide(scene.spec, config, *inputs)
     plan = fg.loss_plan(metrics.RmsSpotRadius(float(detector.get_id())))
     scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
-    call = (scene.spec, config, *inputs, records, masks, None, None, scal, plan)
+    call = (scene.spec, config, *inputs[:5], inputs[6], records, masks, None, None, scal, plan)
     source = (ROOT / "pyrayt_tpu_torch" / "csrc" / "wide_fused_grad.cu").read_text()
     assert SHIPPED in source, "the kernel's launch bounds moved; update this script"
     reference = None

@@ -66,7 +66,7 @@ def child(csrc: str | None) -> int:
             spec = scene.spec
             rays = interop.rays_from_numpy(*wide_rays(name), device=device, dtype=dtype)
             inputs = ft.wide_kernel_inputs(spec, scene.params, rays)
-            state0, obj_tx, prim, glass, slots, _ = inputs
+            state0, obj_tx, prim, glass, slots = inputs[:5]
             config = TraceConfig(generation_limit=gens, fixed_loop=True)
             records, masks, fstate, fold5, win = ft.fused_trace_wide(spec, config, *inputs,
                                                                      save_fold=True)

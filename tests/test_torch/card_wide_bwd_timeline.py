@@ -75,7 +75,7 @@ def main() -> int:
                                  plan=plan)
 
     _, _, _, fold5, win = ft.fused_trace_wide(scene.spec, config, *inputs, save_fold=True)
-    state0, obj_tx, prim, glass, slots, _ = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
 
     def staged_step():
         return fg.staged_bwd(scene.spec, config, state0, obj_tx, prim, glass, slots, records,

@@ -73,7 +73,7 @@ def main() -> int:
         rays.append(ray)
         print(json.dumps({"index": i, "surfaces": {side: [row[5] for row in ray[side]["records"]]
                                                    for side in sides}}), flush=True)
-    state0, obj_tx, prim, glass, slots, aabb = inputs
+    state0, obj_tx, prim, glass, slots, aabb = inputs[:6]
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({
         "outside": bad.numel(), "rays": rays,

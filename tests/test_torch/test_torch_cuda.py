@@ -301,7 +301,7 @@ WIDE_CASES = [(name, dtype) for name in sorted(WIDE_SCENES)
 
 
 def wide_inputs(name, device, dtype):
-    """(spec, config, K2 inputs (state, obj_tx, prim, glass, slots, aabb)),
+    """(spec, config, K2 inputs (state, obj_tx, prim, glass, slots, aabb, cull)),
     float64 scene math cast to ``dtype``."""
     build, _, _, gens = WIDE_SCENES[name]
     with TORCH_NS.fresh_ids():
@@ -396,7 +396,7 @@ def test_staged_tail_matches_plain(cuda, name, dtype):
 def test_staged_fold_matches_plain(cuda, name, dtype):
     spec, config, inputs, (rec, masks, fold5, win), carry, d_rec, plan, scal = staged_inputs(
         name, cuda, dtype)
-    state0, obj_tx, prim, glass, slots, _ = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
     n_groups = len(ft.engine.wide_plan(spec)[1])
     for g in range(masks.shape[0]):
         buf, _, _ = fg.staged_tail_plain(spec, config, state0, rec[g], masks[g],
@@ -421,7 +421,7 @@ def test_staged_fold_matches_plain(cuda, name, dtype):
 def test_staged_backward_repeats_bit_identical(cuda, dtype):
     spec, config, inputs, (rec, masks, fold5, win), carry, d_rec, plan, scal = staged_inputs(
         "csg_singles", cuda, dtype)
-    state0, obj_tx, prim, glass, slots, _ = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
     first = fg.staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, rec, masks, fold5,
                           win, scal=scal, plan=plan)
     second = fg.staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, rec, masks, fold5,
@@ -486,11 +486,30 @@ def test_wide_fused_bwd_matches_plain(cuda, name, dtype):
             assert_rows_close(k, p, dtype, per_ray)
         assert float(kernel[0].abs().max()) > 0
         if dtype == torch.float64:
-            state0, obj_tx, prim, glass, slots, _ = inputs
+            state0, obj_tx, prim, glass, slots = inputs[:5]
             staged = fg.staged_bwd(spec, config, state0, obj_tx, prim, glass, slots, rec, masks,
                                    fold5, win, **kw)
             for k, s in zip(kernel, staged):
                 torch.testing.assert_close(k, s, **TOL64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["shared", "ldg"])
+@pytest.mark.parametrize("name, dtype", WIDE_CASES)
+def test_wide_cull_placements(cuda, name, dtype, placement, monkeypatch):
+    """K2 and K8 hold against their plain versions with the cull table in
+    shared memory and read through the read-only cache (a limit of 0 bytes
+    forces the second), and K2's outputs are bit for bit the same in
+    both."""
+    spec, config, inputs = wide_inputs(name, cuda, dtype)
+    shared = ft.fused_trace_wide(spec, config, *inputs, save_fold=True)
+    if placement == "ldg":
+        monkeypatch.setattr(ft, "CULL_SHARED_BYTES", 0)
+    assert ft.cull_in_shared(inputs[6]) == (placement == "shared")
+    test_wide_kernel_matches_plain(cuda, name, dtype)
+    test_wide_fused_bwd_matches_plain(cuda, name, dtype)
+    again = ft.fused_trace_wide(spec, config, *inputs, save_fold=True)
+    assert all(torch.equal(a, b) for a, b in zip(shared, again))
 
 
 @pytest.mark.cuda
@@ -564,7 +583,7 @@ def test_row_reduce_is_the_sum_k6_and_k8_end_with(cuda, dtype, monkeypatch):
     cotangents bit for bit, and its plain version agrees with them."""
     spec, config, inputs, (rec, masks, fold5, win), carry, d_rec, plan, scal = staged_inputs(
         "mla6", cuda, dtype)
-    state0, obj_tx, prim, glass, slots, _ = inputs
+    state0, obj_tx, prim, glass, slots = inputs[:5]
     tables = []
     make = fg._reduce_table
 

@@ -87,7 +87,7 @@ def test_wide_wrapper_runs_plain_on_cpu_and_checks_inputs(twins):
     plain = ft.fused_trace_wide_plain(spec, config, *inputs)
     assert ft.fused_trace_wide.launches == before  # the plain version counts nothing
     assert len(out) == 3 and all(torch.equal(a, b) for a, b in zip(out, plain))
-    state, obj_tx, prim, glass, slots, aabb = inputs
+    state, obj_tx, prim, glass, slots, aabb = inputs[:6]
     with pytest.raises(ValueError, match="int32"):
         ft.fused_trace_wide_plain(spec, config, state, obj_tx, prim, glass, slots.long(), aabb)
     with pytest.raises(ValueError, match="aabb"):
