@@ -54,8 +54,7 @@ raises, and any failure exits non-zero:
              2**20 rays (RmsSpotRadius through K5's loss mode, the lenslet
              blur's record cotangent through its generic mode), float64
              and float32, each output at its own scale; then K2 with and
-             without save_fold (and at float64, and with its cull table
-             read through __ldg instead of shared memory), K5, K6 and K7
+             without save_fold (and at float64), K5, K6 and K7
              per generation and per step, and their plain versions, CUDA
              events, beside each kernel's bound; the group trees a ray
              evaluates per generation after the chunk skip of the union
@@ -75,9 +74,9 @@ raises, and any failure exits non-zero:
              witnesses of phase 12 through K2 + K8, K8's launches up and the
              staged kernels' none; (d) K8, its plain version and the staged
              backward per step, CUDA events, beside K8's bound (from the
-             tree-level count, the chunk-level bound beside it), K8 with its
-             cull table read through __ldg, and the profiler's split of
-             K8's device time (the table reduce's kernels apart);
+             tree-level count, the chunk-level bound beside it) and the
+             profiler's split of K8's device time (the table reduce's
+             kernels apart);
 15. row reduce — the table reduce that K6, K7 and K8 end with
              (``row_reduce``, csrc/row_reduce.cuh) alone against its plain
              version, float64 and float32, two launches bit-identical, on
@@ -904,10 +903,6 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
                                                             save_fold=True))
     k2_plain_ms = cuda_ms(torch, lambda: ft.fused_trace_wide_plain(spec, grad_config, *inputs),
                           repeats=1, warmup=0)
-    # the cull table read through __ldg instead of shared memory
-    shared_limit, ft.CULL_SHARED_BYTES = ft.CULL_SHARED_BYTES, 0
-    k2_ldg_ms = cuda_ms(torch, lambda: ft.fused_trace_wide(spec, grad_config, *inputs))
-    ft.CULL_SHARED_BYTES = shared_limit
     # float64 on the same grid
     with fresh_ids():
         scene64 = compile_scene(mla_system(comp, pyrayt, MLA_N)[0], device=device,
@@ -989,8 +984,8 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
               "k7": bound(k7_bytes, k7_ops)}
     card = card_line()
     log(f"wide times ({MLA_N}x{MLA_N}, {N_RAYS} rays x {g_count} generations, {ran_total} "
-        f"ray-generations run, float32, median): K2 {k2_ms:.4f} ms (cull table through __ldg "
-        f"{k2_ldg_ms:.4f}; float64 {k2_f64_ms:.4f}), with save_fold "
+        f"ray-generations run, float32, median): K2 {k2_ms:.4f} ms (float64 "
+        f"{k2_f64_ms:.4f}), with save_fold "
         f"{k2_fold_ms:.4f} ms, plain {k2_plain_ms:.2f} ms; group trees per ray and generation "
         f"(of {group_info['T']}): {counts['chunk']:.2f} after the chunk skip, {counts['tree']:.2f} "
         f"after the two-level cull, with {counts['box_tests']:.2f} box tests; staged backward per "
@@ -1148,11 +1143,6 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
                 t["k8_event_minus_device_ms"] = t["k8_rms_loss_mode_ms"] - t["k8_device_ms"]
                 times[tag] = t
                 ran = fg.generations_ran(records, masks)
-                kw = modes["rms_loss_mode"]
-                shared_limit, ft.CULL_SHARED_BYTES = ft.CULL_SHARED_BYTES, 0
-                t["k8_rms_loss_mode_ldg_ms"] = cuda_ms(torch,
-                                                       lambda: fg.fused_bwd_wide(*args, **kw))
-                ft.CULL_SHARED_BYTES = shared_limit
                 counts, ray_ops, chunk_ray_ops = fold_ops(torch, ft, fg, spec, inputs, records,
                                                           masks)
                 winners = int((win >= 0).sum())

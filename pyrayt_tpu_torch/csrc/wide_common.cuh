@@ -8,14 +8,14 @@
 // instruction folds one group of same-shape interval trees, plus the
 // tables the fold needs.  A block copies everything but the per-leaf table
 // into shared memory, together with the object transforms and params of
-// the single (ungrouped) trees' leaves, at most 32, renumbered compactly,
-// and the cull table where it fits (ops/fused_trace.py:CULL_SHARED_BYTES).
+// the single (ungrouped) trees' leaves, at most 32, renumbered compactly.
 // The groups' leaf tables (transforms, params, the sorted slot vector and
-// the per-leaf table) stay in global memory and are read through the
-// read-only path (__ldg): 513 leaves x 22 values is 45 KB at float32 and
-// 90 KB at float64, too much to copy per block.
+// the per-leaf table) and the cull table stay in global memory and are read
+// through the read-only path (__ldg): 513 leaves x 22 values is 45 KB at
+// float32 and 90 KB at float64, too much to copy per block, and a warp
+// reads one cull box at a time, a broadcast from L1.
 //
-// The fold culls in two levels (ops/fused_trace.py:wide_tight_boxes): per
+// The fold culls in two levels (ops/fused_trace.py:wide_cull_tables): per
 // group a ray tests each chunk's box, then inside a chunk it enters each
 // tree's box, and evaluates only the trees whose box it enters.  A tree's
 // box folds its interval opcodes (the intersection of its loaded and
@@ -24,12 +24,11 @@
 // ray evaluates about one tree per generation where the union boxes of the
 // TPU's chunk scan let it evaluate 61.  The boxes are tested as cones: box
 // grown by the group's slope times t, which bounds how far the
-// intersectors' near-parallel conventions let a leaf's interval stray from
-// its box, with reciprocal directions computed once per ray and group.
+// intersectors' near-parallel conventions and their rounding let a leaf's
+// interval stray from its box, with reciprocal directions computed once per
+// ray and group.
 
 #pragma once
-
-#include <float.h>
 
 #include "trace_common.cuh"
 
@@ -74,22 +73,18 @@ struct WideScene {
   const T* objtx;         // (S, 16) object transforms
   const T* prim;          // (S, 6)
   const int* slots;       // the sorted flat slot vector (global)
-  const T* cull;          // (rows, 6) cull table: shared or global
-  bool cull_shared;       // cull points into shared memory
+  const T* cull;          // (rows, 6) cull table (global)
 };
 
-// shared-memory bytes of load_wide_scene (cull_rows: the cull table's rows
-// when it is copied, else 0)
+// shared-memory bytes of load_wide_scene
 template <typename T>
-size_t wide_smem_bytes(int prefix_len, int n_single_leaves, int n_glass, int cull_rows) {
-  return sizeof(T) * (22 * static_cast<size_t>(n_single_leaves) + 7 * static_cast<size_t>(n_glass) +
-                      6 * static_cast<size_t>(cull_rows)) +
+size_t wide_smem_bytes(int prefix_len, int n_single_leaves, int n_glass) {
+  return sizeof(T) * (22 * static_cast<size_t>(n_single_leaves) + 7 * static_cast<size_t>(n_glass)) +
          sizeof(int) * (5 * static_cast<size_t>(n_single_leaves) + static_cast<size_t>(prefix_len));
 }
 
-// Copy the program prefix, the single leaves' compact tables, the glass
-// rows and, with cull_shared, the cull table's cull_rows rows into the
-// block's shared memory; every thread of the block calls it.
+// Copy the program prefix, the single leaves' compact tables and the glass
+// rows into the block's shared memory; every thread of the block calls it.
 // No pointer of the wide kernels is __restrict__: the intersectors read a
 // leaf's tables through one pointer that may point into shared memory (a
 // single) or global memory (a group).  Built at -O3 with __restrict__ kernel
@@ -100,13 +95,11 @@ template <typename T>
 __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
                                         int prefix_len, int ns, const T* objtx,
                                         const T* prim, const T* glass,
-                                        int n_glass, const int* slots,
-                                        const T* cull, int cull_rows, bool cull_shared) {
+                                        int n_glass, const int* slots, const T* cull) {
   T* s_objtx = reinterpret_cast<T*>(smem);
   T* s_prim = s_objtx + 16 * ns;
   T* s_glass = s_prim + 6 * ns;
-  T* s_cull = s_glass + 7 * n_glass;
-  int* s_leaf = reinterpret_cast<int*>(s_cull + (cull_shared ? 6 * cull_rows : 0));
+  int* s_leaf = reinterpret_cast<int*>(s_glass + 7 * n_glass);
   int* s_prog = s_leaf + 5 * ns;
   const int* singles = program + program[W_SINGLES_OFF];  // [global slot, type] per leaf
   const int* leaf_table = program + program[W_LEAF_OFF];
@@ -121,9 +114,6 @@ __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
     s_leaf[k] = leaf_table[5 * singles[2 * (k / 5)] + k % 5];
   }
   for (int k = threadIdx.x; k < 7 * n_glass; k += blockDim.x) s_glass[k] = glass[k];
-  if (cull_shared) {
-    for (int k = threadIdx.x; k < 6 * cull_rows; k += blockDim.x) s_cull[k] = cull[k];
-  }
   __syncthreads();
   WideScene<T> ws;
   ws.singles.objtx = s_objtx;
@@ -139,8 +129,7 @@ __device__ WideScene<T> load_wide_scene(unsigned char* smem, const int* program,
   ws.objtx = objtx;
   ws.prim = prim;
   ws.slots = slots;
-  ws.cull = cull_shared ? s_cull : cull;
-  ws.cull_shared = cull_shared;
+  ws.cull = cull;
   return ws;
 }
 
@@ -153,7 +142,7 @@ __device__ __forceinline__ int single_slot(const WideScene<T>& ws, int c) {
 // value k of the cull table
 template <typename T>
 __device__ __forceinline__ T cull_at(const WideScene<T>& ws, int k) {
-  return ws.cull_shared ? ws.cull[k] : __ldg(ws.cull + k);
+  return __ldg(ws.cull + k);
 }
 
 // A ray's view of one group's cull boxes.  Each box (padded by 64 ulps of
@@ -235,40 +224,6 @@ __device__ __forceinline__ void group_tree(const WideScene<T>& ws, const Group& 
   }
 }
 
-// The nearest positive candidate of sorted tree t of group G whose opcodes
-// are IV_LOAD then IV_AND only (every lens and lenslet): its one interval
-// in registers, with iv_apply's and nearest_of's arithmetic and tie rules.
-// Returns the distance (inf: none) and the winning leaf position (-1).
-template <typename T>
-__device__ __forceinline__ T group_tree_and(const WideScene<T>& ws, const Group& G, int t,
-                                            const T p[3], const T v[3], int& pos) {
-  T lo = inf_v<T>(), hi = inf_v<T>();
-  int lo_id = 0, hi_id = 0;
-  for (int j = 0; j < G.n_leaves; ++j) {
-    const Pair<T> b = group_leaf_pair(ws, G.type[j], __ldg(ws.slots + G.slot_off + t * G.n_leaves + j),
-                                      p, v);
-    if (j == 0) {
-      lo = b.lo;
-      hi = b.hi;
-      lo_id = hi_id = 0;
-    } else {
-      const T nlo = mx(lo, b.lo), nhi = mn(hi, b.hi);
-      lo_id = b.lo > lo ? j : lo_id;
-      hi_id = b.hi < hi ? j : hi_id;
-      const bool empty = nlo > nhi;
-      lo = empty ? inf_v<T>() : nlo;
-      hi = empty ? inf_v<T>() : nhi;
-    }
-  }
-  T best = inf_v<T>();
-  pos = -1;
-  const T c0 = lo > T(0) ? lo : inf_v<T>();
-  if (c0 < best) { best = c0; pos = lo_id; }
-  const T c1 = hi > T(0) ? hi : inf_v<T>();
-  if (c1 < best) { best = c1; pos = hi_id; }
-  return best;
-}
-
 // the nearest positive candidate of interval list iv: distance and
 // position (-1: none), strict < in fold order
 template <typename T>
@@ -319,8 +274,6 @@ __device__ void wide_nearest(const WideScene<T>& ws, const T p[3], const T v[3],
       [&](const int* in) {
         const int g = in[1];
         const Group G = group_at(ws.prog, g);
-        bool and_only = true;
-        for (int j = 1; j < G.n_leaves; ++j) and_only = and_only && G.op[j] == IV_AND;
         RayCull<T> rc;
         ray_cull(ws, G, p, v, rc);
         const int tree_row = G.cull_off + 1 + G.n_chunks;
@@ -351,16 +304,11 @@ __device__ void wide_nearest(const WideScene<T>& ws, const T p[3], const T v[3],
               while (trees != 0u) {
                 const int t = b0 + __ffs(static_cast<int>(trees)) - 1;
                 trees &= trees - 1u;
+                Intervals<T> iv;
+                int ts[kMaxGroupLeaves];
+                group_tree(ws, G, t, p, v, ts, iv);
                 int pos;
-                T d;
-                if (and_only) {
-                  d = group_tree_and(ws, G, t, p, v, pos);
-                } else {
-                  Intervals<T> iv;
-                  int ts[kMaxGroupLeaves];
-                  group_tree(ws, G, t, p, v, ts, iv);
-                  d = nearest_of(iv, pos);
-                }
+                const T d = nearest_of(iv, pos);
                 if (d < h.best) {
                   h.best = d;
                   h.win = G.code_base + t;

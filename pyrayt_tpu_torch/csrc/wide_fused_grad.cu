@@ -40,17 +40,17 @@
 // within the block, which reduce_partials adds in a fixed order.  Two
 // launches give bit-identical gradients.
 //
-// Tables: as K2, the program prefix, the single leaves' tables (at most 32),
-// the glass rows and the cull table (up to 16 KB) sit in shared memory
-// beside the glass staging (7.8 KB); the groups' tables are read from
-// global memory through __ldg.  So the leaf count has no
+// Tables: as K2, the program prefix, the single leaves' tables (at most 32)
+// and the glass rows sit in shared memory beside the glass staging (7.8 KB);
+// the groups' tables and the cull table are read from global memory through
+// __ldg.  So the leaf count has no
 // cap of its own (the JAX kernel's 300-leaf cap guarded a TPU compiler
 // crash; the reduce's shared-memory row counters cap it at 51,200 leaves),
 // and with the rays grows the (G, n, 18) value buffer in device memory.
 //
 // What bounds it on an H100: per ray and generation run, the fold's box
 // tests and the leaf intersections of the trees whose boxes it enters (as
-// K2's two-level cull), the tail adjoint and one leaf's adjoint, against 15 record rows, the
+// K2), the tail adjoint and one leaf's adjoint, against 15 record rows, the
 // mask and the 13 state rows in and out per ray (generic mode: 15
 // d_records and 13 d_fstate rows more): operations bind.  The reduce adds
 // two reads of the G n keys and one of each hit's 18 values.
@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) wide_fused_bwd_kernel(
     const T* state0, long long n, int generations,
     const T* objtx, const T* prim, const T* glass, const int* program,
     int prefix_len, int n_single_leaves, int n_glass, const int* slots, const T* cull,
-    int cull_rows, int cull_shared, const T* records, const bool* masks, const T* d_records, const T* d_fstate,
+    const T* records, const bool* masks, const T* d_records, const T* d_fstate,
     int plan, const T* scal, int n_scal,
     T ray_offset, T world_index, T threshold, int apply_threshold,
     T* d_state0, int* keys, T* vals, double* partials) {
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) wide_fused_bwd_kernel(
   }
   const WideScene<T> ws = load_wide_scene(smem + stage_bytes<T>(), program, prefix_len,
                                           n_single_leaves, objtx, prim, glass, n_glass, slots,
-                                          cull, cull_rows, cull_shared != 0);
+                                          cull);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
   const bool active = i < n;
 
@@ -252,22 +252,21 @@ __global__ void __launch_bounds__(kThreads) wide_fused_bwd_kernel(
 template <typename T, bool LOSS>
 int launch(const void* state0, long long n, int generations, const void* objtx,
            const void* prim, const void* glass, const void* program, int prefix_len,
-           int n_single_leaves, int n_glass, const void* slots, const void* cull, int cull_rows,
-           int cull_shared, const void* records, const void* masks, const void* d_records, const void* d_fstate,
+           int n_single_leaves, int n_glass, const void* slots, const void* cull,
+           const void* records, const void* masks, const void* d_records, const void* d_fstate,
            int plan, const void* scal, int n_scal, double ray_offset, double world_index,
            double threshold, int apply_threshold, void* d_state0, void* keys, void* vals,
            void* glass_partials, const void* reduce_slots, int n_rows, void* scratch,
            void* d_objtx, void* d_prim, void* d_glass, void* stream) {
   if (prefix_len < kWideHeader || n_single_leaves < 0 || n_single_leaves > kMaxSingleLeaves ||
       n_glass < 0 || generations < 0 || n_scal < 0 || n_scal > kMaxScal || n_rows < 0 ||
-      (n_rows > 0 && scratch == nullptr) || cull_rows < 1 || cull == nullptr ||
+      (n_rows > 0 && scratch == nullptr) || cull == nullptr ||
       (LOSS && (plan < 0 || plan > 2 || scal == nullptr)) ||
       (!LOSS && (d_records == nullptr || d_fstate == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const size_t smem = stage_bytes<T>() + wide_smem_bytes<T>(prefix_len, n_single_leaves, n_glass,
-                                                            cull_shared ? cull_rows : 0);
+  const size_t smem = stage_bytes<T>() + wide_smem_bytes<T>(prefix_len, n_single_leaves, n_glass);
   auto kernel = wide_fused_bwd_kernel<T, LOSS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -280,8 +279,7 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
       static_cast<const T*>(state0), n, generations, static_cast<const T*>(objtx),
       static_cast<const T*>(prim), static_cast<const T*>(glass), static_cast<const int*>(program),
       prefix_len, n_single_leaves, n_glass, static_cast<const int*>(slots),
-      static_cast<const T*>(cull), cull_rows, cull_shared, static_cast<const T*>(records),
-      static_cast<const bool*>(masks),
+      static_cast<const T*>(cull), static_cast<const T*>(records), static_cast<const bool*>(masks),
       static_cast<const T*>(d_records), static_cast<const T*>(d_fstate), plan,
       static_cast<const T*>(scal), n_scal, static_cast<T>(ray_offset), static_cast<T>(world_index),
       static_cast<T>(threshold), apply_threshold, static_cast<T*>(d_state0),
@@ -304,16 +302,14 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
 #define PYRAYT_FUSED_WIDE_ARGS                                                                  \
   const void *state0, long long n, int generations, const void *objtx, const void *prim,        \
       const void *glass, const void *program, int prefix_len, int n_single_leaves, int n_glass,  \
-      const void *slots, const void *cull, int cull_rows, int cull_shared, const void *records,  \
-      const void *masks,                                                                         \
+      const void *slots, const void *cull, const void *records, const void *masks,               \
       const void *d_records, const void *d_fstate, int plan, const void *scal, int n_scal,       \
       double ray_offset, double world_index, double threshold, int apply_threshold,              \
       void *d_state0, void *keys, void *vals, void *glass_partials, const void *reduce_slots,    \
       int n_rows, void *scratch, void *d_objtx, void *d_prim, void *d_glass, void *stream
 #define PYRAYT_FUSED_WIDE_PASS                                                                  \
   state0, n, generations, objtx, prim, glass, program, prefix_len, n_single_leaves, n_glass,    \
-      slots, cull, cull_rows, cull_shared, records, masks, d_records, d_fstate, plan, scal,      \
-      n_scal, ray_offset,                                                                        \
+      slots, cull, records, masks, d_records, d_fstate, plan, scal, n_scal, ray_offset,          \
       world_index, threshold, apply_threshold, d_state0, keys, vals, glass_partials,             \
       reduce_slots, n_rows, scratch, d_objtx, d_prim, d_glass, stream
 

@@ -292,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) staged_fold_kernel(
   const WideScene<T> ws = load_wide_scene(smem + fold_stage_bytes<T>(), program, prefix_len,
                                           n_single_leaves, objtx, prim,
                                           static_cast<const T*>(nullptr), 0, slots,
-                                          static_cast<const T*>(nullptr), 0, false);
+                                          static_cast<const T*>(nullptr));
   const int lane = threadIdx.x & 31;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   T geo[kGeo];
@@ -359,7 +359,7 @@ int launch_fold(long long n, const void* buf, const void* win, const void* objtx
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const size_t smem = fold_stage_bytes<T>() + wide_smem_bytes<T>(prefix_len, n_single_leaves, 0, 0);
+  const size_t smem = fold_stage_bytes<T>() + wide_smem_bytes<T>(prefix_len, n_single_leaves, 0);
   auto kernel = staged_fold_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

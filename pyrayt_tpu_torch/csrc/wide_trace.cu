@@ -12,7 +12,7 @@
 //              ray skips a chunk of 16 trees whose box it does not enter,
 //              and inside a chunk each tree whose own box it does not
 //              enter (wide_common.cuh: cull_hit on the tight boxes of
-//              ops/fused_trace.py:wide_tight_boxes, padded and grown so it
+//              ops/fused_trace.py:wide_cull_tables, padded and grown so it
 //              never drops a hit), or enters only past its best hit; a
 //              strict < fold in ascending sorted order keeps the JAX
 //              kernel's win codes;
@@ -29,20 +29,19 @@
 // generations a ray did not run are zero in records, masks and fold5, and
 // -1 in win.
 //
-// Tables: the program prefix, the single leaves' tables (at most 32), the
-// glass rows and the cull table (up to 16 KB; larger ones through __ldg)
-// sit in shared memory; the groups' transforms, params, sorted slots and
-// the per-leaf table are read from global memory through __ldg (L1/L2-
-// cached: the 16x16 array's 513 leaves are 45 KB at float32).  The JAX
-// package's 4096-leaf cap existed for the TPU's scalar memory and is
-// dropped.
+// Tables: the program prefix, the single leaves' tables (at most 32) and
+// the glass rows sit in shared memory; the groups' transforms, params,
+// sorted slots, the per-leaf table and the cull table are read from global
+// memory through __ldg (L1/L2-cached: the 16x16 array's 513 leaves are
+// 45 KB at float32).  The JAX package's 4096-leaf cap existed for the TPU's
+// scalar memory and is dropped.
 //
 // What bounds it on an H100: per ray and generation, the box tests of every
 // chunk and of the trees in the chunks it enters, and the leaf
 // intersections of the trees whose boxes it enters (all counted by
 // chip_smoke.py from the run's data), against the record writes of K1
 // (15 G n itemsize bytes) plus fold5 and win with save_fold.  Branchy
-// scalar math; a lens group's tree keeps its one interval in registers.
+// scalar math.
 
 #include "wide_common.cuh"
 
@@ -55,14 +54,13 @@ __global__ void __launch_bounds__(kThreads) fused_trace_wide_kernel(
     const T* state, long long n, int generations,
     const T* objtx, const T* prim, const T* glass,
     const int* program, int prefix_len, int n_single_leaves, int n_glass,
-    const int* slots, const T* cull, int cull_rows, int cull_shared,
+    const int* slots, const T* cull,
     T* records, bool* masks, T* fstate,
     T* fold5, int* win,
     T ray_offset, T world_index, T threshold, int apply_threshold) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WideScene<T> ws = load_wide_scene(smem, program, prefix_len, n_single_leaves, objtx, prim,
-                                          glass, n_glass, slots, cull, cull_rows,
-                                          cull_shared != 0);
+                                          glass, n_glass, slots, cull);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -139,17 +137,15 @@ template <typename T>
 int launch(const void* state, long long n, int generations, const void* objtx, const void* prim,
            const void* glass, const void* program, int prefix_len, int n_single_leaves,
            int n_glass, const void* slots, const void* cull, void* records, void* masks,
-           void* fstate, void* fold5, void* win, int cull_rows, int cull_shared,
-           double ray_offset, double world_index, double threshold, int apply_threshold,
-           void* stream) {
+           void* fstate, void* fold5, void* win, double ray_offset, double world_index,
+           double threshold, int apply_threshold, void* stream) {
   if (prefix_len < kWideHeader || n_single_leaves < 0 || n_single_leaves > kMaxSingleLeaves ||
       n_glass < 0 || generations < 0 || ((fold5 == nullptr) != (win == nullptr)) ||
-      cull_rows < 1 || cull == nullptr) {
+      cull == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const size_t smem = wide_smem_bytes<T>(prefix_len, n_single_leaves, n_glass,
-                                         cull_shared ? cull_rows : 0);
+  const size_t smem = wide_smem_bytes<T>(prefix_len, n_single_leaves, n_glass);
   auto kernel = fused_trace_wide_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -161,9 +157,8 @@ int launch(const void* state, long long n, int generations, const void* objtx, c
       static_cast<const T*>(state), n, generations, static_cast<const T*>(objtx),
       static_cast<const T*>(prim), static_cast<const T*>(glass), static_cast<const int*>(program),
       prefix_len, n_single_leaves, n_glass, static_cast<const int*>(slots),
-      static_cast<const T*>(cull), cull_rows, cull_shared, static_cast<T*>(records),
-      static_cast<bool*>(masks), static_cast<T*>(fstate), static_cast<T*>(fold5),
-      static_cast<int*>(win),
+      static_cast<const T*>(cull), static_cast<T*>(records), static_cast<bool*>(masks),
+      static_cast<T*>(fstate), static_cast<T*>(fold5), static_cast<int*>(win),
       static_cast<T>(ray_offset), static_cast<T>(world_index), static_cast<T>(threshold),
       apply_threshold);
   return static_cast<int>(cudaGetLastError());
@@ -175,12 +170,12 @@ int launch(const void* state, long long n, int generations, const void* objtx, c
   const void *state, long long n, int generations, const void *objtx, const void *prim,        \
       const void *glass, const void *program, int prefix_len, int n_single_leaves, int n_glass, \
       const void *slots, const void *cull, void *records, void *masks, void *fstate,            \
-      void *fold5, void *win, int cull_rows, int cull_shared, double ray_offset,                \
-      double world_index, double threshold, int apply_threshold, void *stream
+      void *fold5, void *win, double ray_offset, double world_index, double threshold,          \
+      int apply_threshold, void *stream
 #define PYRAYT_WIDE_PASS                                                                       \
   state, n, generations, objtx, prim, glass, program, prefix_len, n_single_leaves, n_glass,    \
-      slots, cull, records, masks, fstate, fold5, win, cull_rows, cull_shared, ray_offset,      \
-      world_index, threshold, apply_threshold, stream
+      slots, cull, records, masks, fstate, fold5, win, ray_offset, world_index, threshold,      \
+      apply_threshold, stream
 
 extern "C" {
 

@@ -1256,8 +1256,7 @@ def _wide_fused_library():
     args = (
         [p, ctypes.c_longlong, i]  # state0, n, generations
         + [p] * 4 + [i] * 3  # objtx, prim, glass, program; prefix_len, n_single_leaves, n_glass
-        + [p] * 2 + [i] * 2  # slots, cull; cull rows, cull in shared memory
-        + [p] * 4  # records, masks, d_records, d_fstate
+        + [p] * 6  # slots, cull, records, masks, d_records, d_fstate
         + [i, p, i]  # plan, scal, n_scal
         + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
         + [p] * 5 + [i]  # d_state0, keys, vals, glass partials, reduce slots; rows
@@ -1307,7 +1306,7 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, r
         err = fn(
             state0.data_ptr(), n, g, obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(),
             program.data_ptr(), *ft.wide_program_sizes(spec), m, slots.data_ptr(), cull.data_ptr(),
-            cull.shape[0], int(ft.cull_in_shared(cull)), records.data_ptr(), masks.data_ptr(),
+            records.data_ptr(), masks.data_ptr(),
             d_records.data_ptr() if plan is None else None,
             d_fstate.data_ptr() if plan is None else None,
             -1 if plan is None else plan.kind, scal.data_ptr() if plan is not None else None,

@@ -40,8 +40,7 @@ The wide kernel (``csrc/wide_trace.cu``) replaces the Pallas kernel of
 (:func:`wide_tables`, :func:`wide_runtime_tables`, :func:`leaf_meta_table`,
 :func:`wide_fold_plan`) equal the JAX package's, so its win codes name the
 same trees; its scene program is :func:`wide_program`, and it culls by the
-port's own tight boxes (:func:`wide_tight_boxes`, packed by
-:func:`wide_cull_tables`).  :func:`fused_trace_wide`,
+port's own tight boxes (:func:`wide_cull_tables`).  :func:`fused_trace_wide`,
 its plain version :func:`fused_trace_wide_plain` and the kernel share the
 per-ray exit contract above, and with ``save_fold`` also return the fold
 (``fold5``, ``win``) the staged backward reads.
@@ -380,20 +379,23 @@ def _leaf_world_aabb(type_code, pr, world):
 # (``isclose0`` of a direction component, 1e-8, or of a cylinder's
 # d_x^2 + d_y^2, so |d_xy| <= 1e-4), and the ray's points on such an
 # interval then stray from the leaf's box by at most that slope times t.
-# Doubled for rounding.  A paraboloid is not bounded (below).
+# Doubled as a margin; rounding adds its own (_ROUNDING_SLOPE).  A paraboloid
+# is not bounded (below).
 _CULL_SLOPE = {
     prim_mod.SPHERE: (0.0, 0.0, 0.0),
     prim_mod.PLANE: (2e-8, 2e-8, 0.0),
     prim_mod.CUBE: (2e-8, 2e-8, 2e-8),
     prim_mod.CYLINDER: (2e-4, 2e-4, 2e-8),
 }
+# the rounding's slope in units of sqrt(eps) (_wide_box_pass)
+_ROUNDING_SLOPE = 8.0
 
 
-def _chunk_union(lo3, hi3):
-    """``(chunks, 6)`` unions of consecutive ``WIDE_CHUNK_TREES`` boxes of
-    the sorted ``(T, 3)`` corners (no rows for an unchunked group, T < 32)."""
+def _chunk_union(lo3, hi3, nc):
+    """``(nc, 6)`` unions of consecutive ``WIDE_CHUNK_TREES`` boxes of the
+    sorted ``(T, 3)`` corners; ``nc`` is the group's chunk count of
+    :func:`wide_tables` (0: unchunked, no rows)."""
     t_count, chunk = lo3.shape[0], WIDE_CHUNK_TREES
-    nc = -(-t_count // chunk) if t_count >= 2 * chunk else 0
     pad = max(nc * chunk - t_count, 0)
     s_min = torch.cat((lo3, lo3.new_full((pad, 3), INF)))[:nc * chunk].reshape(nc, chunk, 3)
     s_max = torch.cat((hi3, hi3.new_full((pad, 3), -INF)))[:nc * chunk].reshape(nc, chunk, 3)
@@ -402,78 +404,14 @@ def _chunk_union(lo3, hi3):
 
 def _wide_box_pass(spec: SceneSpec, params, dtype):
     """One pass over the groups: ``(slots, aabb, tight)`` where ``slots``
-    and ``aabb`` are :func:`wide_runtime_tables`' and ``tight`` is per
-    group ``(tree_box (T, 6), chunk_box (chunks, 6), slope (3,))`` of
-    :func:`wide_tight_boxes`."""
-    _, groups, offsets, slots_flat, chunk_offsets, n_chunks = wide_tables(spec)
-    device = params["world"].device
-    slots_out = torch.as_tensor(slots_flat, device=device).clone()
-    aabb = torch.zeros((max(sum(n_chunks), 1), 6), dtype=dtype, device=device)
-    world = params["world"].detach().to(dtype)
-    prims = params["prim"].detach().to(dtype)
-    tight_out = []
-    for gi, (template, types_pos, slot_matrix) in enumerate(groups):
-        nc = n_chunks[gi]
-        t_count, l_count = len(slot_matrix), len(types_pos)
-        slots_t = torch.as_tensor(slot_matrix, dtype=torch.long, device=device)
-        kw = dict(dtype=dtype, device=device)
-        mins = torch.full((t_count, 3), INF, **kw)
-        maxs = torch.full((t_count, 3), -INF, **kw)
-        t_min = torch.full((t_count, 3), -INF, **kw)  # the tight box, folded by opcode
-        t_max = torch.full((t_count, 3), INF, **kw)
-        slope = torch.zeros((3,), **kw)
-        ops = [op for op, _ in _interval_chain(template)]
-        for j in range(l_count):
-            sj = slots_t[:, j]
-            lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
-            mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
-            k_local = _CULL_SLOPE.get(types_pos[j])
-            if ops[j] == IV_SUB or k_local is None:
-                continue  # IV_SUB keeps the box; an unbounded leaf tightens nothing
-            t_min, t_max = torch.maximum(t_min, lo), torch.minimum(t_max, hi)
-            a = world[sj, :3, :3].abs()
-            k_world = torch.stack([a[:, i, 0] * k_local[0] + a[:, i, 1] * k_local[1]
-                                   + a[:, i, 2] * k_local[2] for i in range(3)], dim=1)
-            slope = torch.maximum(slope, k_world.max(dim=0).values)
-        if nc:  # an unchunked group keeps its trees in index order
-            centers = (mins + maxs) / 2
-            spread = centers.max(dim=0).values - centers.min(dim=0).values
-            perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
-            off = offsets[gi]
-            slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
-        else:
-            perm = torch.arange(t_count, device=device)
-        if nc:
-            aabb[chunk_offsets[gi]:chunk_offsets[gi] + nc] = _chunk_union(mins[perm], maxs[perm])
-        tree_box = torch.cat((t_min, t_max), dim=1)[perm]
-        tight_out.append((tree_box, _chunk_union(t_min[perm], t_max[perm]), slope))
-    return slots_out, aabb, tuple(tight_out)
-
-
-def wide_runtime_tables(spec: SceneSpec, params, dtype):
-    """Call-time wide tables from the scene params: the spatially sorted
-    flat slot vector (int32) and the chunk AABBs ``(chunks, 6)`` as
-    ``[lo_x, lo_y, lo_z, hi_x, hi_y, hi_z]`` rows (one zero row when no
-    group is chunked).
-
-    Per group each tree's box is the union of its leaves' boxes; trees sort
-    along the axis of largest center spread with a STABLE sort (equal keys,
-    such as one row of a square grid, keep their index order, as
-    ``jnp.argsort`` does), and chunk boxes are min/maxes over the sorted
-    order.  Not differentiable: the tables only order and skip work.
-    """
-    slots, aabb, _ = _wide_box_pass(spec, params, dtype)
-    return slots, aabb
-
-
-def wide_tight_boxes(spec: SceneSpec, params, dtype):
-    """The cull boxes of the wide kernels K2 and K8, per group in fold
-    order: ``(tree_box (T, 6), chunk_box (chunks, 6), slope (3,))``.
+    and ``aabb`` are :func:`wide_runtime_tables`' and ``tight`` holds the
+    cull boxes of the wide kernels K2 and K8, per group in fold order:
+    ``(tree_box (T, 6), chunk_box (chunks, 6), slope (3,))``.
     ``tree_box`` holds each tree's conservative world box in the sorted
-    order of :func:`wide_runtime_tables`' slot vector, ``chunk_box`` the
-    union of its 16 trees' boxes (no rows for an unchunked group), rows
-    ``[lo_xyz, hi_xyz]``.  Port only (the JAX package culls by the loose
-    chunk boxes alone); not differentiable.
+    order of the slot vector, ``chunk_box`` the union of its 16 trees'
+    boxes (no rows for an unchunked group), rows ``[lo_xyz, hi_xyz]``.
+    Port only (the JAX package culls by the loose chunk boxes alone); not
+    differentiable.
 
     A tree's box folds its interval opcodes: ``IV_LOAD`` starts from the
     leaf's box (:func:`_leaf_world_aabb`), ``IV_AND`` intersects it with
@@ -502,13 +440,80 @@ def wide_tight_boxes(spec: SceneSpec, params, dtype):
       far off the axis), and the slab clip then keeps a segment at any
       radius.  A paraboloid leaf tightens nothing.
 
+    Rounding strays too, and more the farther the origin: a quadratic's
+    ``b^2 - 4ac`` cancels, so with its absolute error of about 4 t^2 eps
+    (unit direction, t ~ |o|) a computed root lies within
+    sqrt(r^2 + 4 t^2 eps) <= r + 2 sqrt(eps) t of the center, and a slab's
+    root within eps t of its face.  Each tightening leaf's local slope gets
+    ``_ROUNDING_SLOPE`` sqrt(eps) of the table's dtype on every axis, four
+    times that bound (at float32 2.8e-3, at float64 1.2e-7).
+
     ``slope`` bounds those strays in world space for the whole group: per
     world axis the largest ``|A| k`` over the tightening leaves (``k`` the
-    local slopes, ``_CULL_SLOPE``, ``A`` the leaf's world rotation and
-    scale).  The kernels test a ray against each box grown by ``slope * t``
-    at parameter t > 0, which the strays never leave.
+    local slopes, ``_CULL_SLOPE`` plus the rounding's, ``A`` the leaf's
+    world rotation and scale).  The kernels test a ray against each box
+    grown by ``slope * t`` at parameter t > 0, which the strays never leave.
     """
-    return _wide_box_pass(spec, params, dtype)[2]
+    _, groups, offsets, slots_flat, chunk_offsets, n_chunks = wide_tables(spec)
+    device = params["world"].device
+    slots_out = torch.as_tensor(slots_flat, device=device).clone()
+    aabb = torch.zeros((max(sum(n_chunks), 1), 6), dtype=dtype, device=device)
+    world = params["world"].detach().to(dtype)
+    prims = params["prim"].detach().to(dtype)
+    rounding = _ROUNDING_SLOPE * torch.finfo(dtype).eps ** 0.5
+    tight_out = []
+    for gi, (template, types_pos, slot_matrix) in enumerate(groups):
+        nc = n_chunks[gi]
+        t_count, l_count = len(slot_matrix), len(types_pos)
+        slots_t = torch.as_tensor(slot_matrix, dtype=torch.long, device=device)
+        kw = dict(dtype=dtype, device=device)
+        mins = torch.full((t_count, 3), INF, **kw)
+        maxs = torch.full((t_count, 3), -INF, **kw)
+        t_min = torch.full((t_count, 3), -INF, **kw)  # the tight box, folded by opcode
+        t_max = torch.full((t_count, 3), INF, **kw)
+        slope = torch.zeros((3,), **kw)
+        ops = [op for op, _ in _interval_chain(template)]
+        for j in range(l_count):
+            sj = slots_t[:, j]
+            lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
+            mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
+            k_local = _CULL_SLOPE.get(types_pos[j])
+            if ops[j] == IV_SUB or k_local is None:
+                continue  # IV_SUB keeps the box; an unbounded leaf tightens nothing
+            t_min, t_max = torch.maximum(t_min, lo), torch.minimum(t_max, hi)
+            a = world[sj, :3, :3].abs()
+            k = [k_local[ax] + rounding for ax in range(3)]
+            k_world = torch.stack([a[:, i, 0] * k[0] + a[:, i, 1] * k[1] + a[:, i, 2] * k[2]
+                                   for i in range(3)], dim=1)
+            slope = torch.maximum(slope, k_world.max(dim=0).values)
+        if nc:  # an unchunked group keeps its trees in index order
+            centers = (mins + maxs) / 2
+            spread = centers.max(dim=0).values - centers.min(dim=0).values
+            perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
+            off = offsets[gi]
+            slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
+            aabb[chunk_offsets[gi]:chunk_offsets[gi] + nc] = _chunk_union(mins[perm], maxs[perm], nc)
+        else:
+            perm = torch.arange(t_count, device=device)
+        tree_box = torch.cat((t_min, t_max), dim=1)[perm]
+        tight_out.append((tree_box, _chunk_union(t_min[perm], t_max[perm], nc), slope))
+    return slots_out, aabb, tuple(tight_out)
+
+
+def wide_runtime_tables(spec: SceneSpec, params, dtype):
+    """Call-time wide tables from the scene params: the spatially sorted
+    flat slot vector (int32) and the chunk AABBs ``(chunks, 6)`` as
+    ``[lo_x, lo_y, lo_z, hi_x, hi_y, hi_z]`` rows (one zero row when no
+    group is chunked).
+
+    Per group each tree's box is the union of its leaves' boxes; trees sort
+    along the axis of largest center spread with a STABLE sort (equal keys,
+    such as one row of a square grid, keep their index order, as
+    ``jnp.argsort`` does), and chunk boxes are min/maxes over the sorted
+    order.  Not differentiable: the tables only order and skip work.
+    """
+    slots, aabb, _ = _wide_box_pass(spec, params, dtype)
+    return slots, aabb
 
 
 def _pad_box(box):
@@ -521,7 +526,7 @@ def _pad_box(box):
 def wide_cull_tables(spec: SceneSpec, params, dtype):
     """K2's and K8's call-time tables: ``(slots, aabb, cull)``, the first
     two :func:`wide_runtime_tables`' and ``cull`` (rows, 6) the packed cull
-    table of :func:`wide_tight_boxes`, computed in the same pass.  Group g's
+    boxes of :func:`_wide_box_pass`, computed in the same pass.  Group g's
     rows start at ``cull_offsets(spec)[g]`` (the wide program's group
     field 6): its slope ``[s_x, s_y, s_z, 0, 0, 0]``, its chunk boxes, its
     tree boxes, each box padded as ``_box_hit`` pads (64 ulps)."""
@@ -1177,7 +1182,6 @@ def _wide_library():
         [p, ctypes.c_longlong, i]  # state, n, generations
         + [p] * 4 + [i] * 3  # obj_tx, prim, glass, program; prefix_len, n_single_leaves, n_glass
         + [p] * 7  # slots, cull, records, masks, final state, fold5, win
-        + [i] * 2  # cull rows, cull in shared memory
         + [d] * 3 + [i, p]  # ray_offset, world_index, intensity_threshold; apply, stream
     )
     for name in ("pyrayt_fused_trace_wide_f32", "pyrayt_fused_trace_wide_f64"):
@@ -1192,17 +1196,6 @@ def _wide_library():
 @lru_cache(maxsize=64)
 def device_wide_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(wide_program(spec), device=device)
-
-
-# K2 and K8 copy the cull table into each block's shared memory up to this
-# size (the 16x16 array's is 273 rows: 6.4 KB at float32, 12.8 KB at
-# float64) and read a larger one through the read-only cache
-CULL_SHARED_BYTES = 16 * 1024
-
-
-def cull_in_shared(cull) -> bool:
-    """Whether the kernels hold ``cull`` in shared memory."""
-    return cull.numel() * cull.element_size() <= CULL_SHARED_BYTES
 
 
 def wide_program_sizes(spec: SceneSpec):
@@ -1256,7 +1249,6 @@ def fused_trace_wide(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, 
             slots.data_ptr(), cull.data_ptr(),
             records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
             fold5.data_ptr() if save_fold else None, win.data_ptr() if save_fold else None,
-            cull.shape[0], int(cull_in_shared(cull)),
             config.ray_offset, config.world_index, config.intensity_threshold,
             int(config.apply_intensity_threshold),
             torch.cuda.current_stream(state.device).cuda_stream,

@@ -9,9 +9,8 @@ Per dtype: K2 without save_fold on phase 13's grid of ``chip_smoke.py``
 (0.95 of the array) and on the bench's (1.05, bench.py:1258), and K8 in
 RmsSpotRadius loss mode on the bench's grid, each the median of 10 launches
 by CUDA events after 2 warm-up launches; K8's per-ray kernel as the mean
-device time of its launches in ``torch.profiler`` (5 calls).  Where the
-checkout has the cull table (``ft.CULL_SHARED_BYTES``), K2 and K8 again
-with the table read through ``__ldg``.  Prints one JSON line with the
+device time of its launches in ``torch.profiler`` (5 calls).  Prints one
+JSON line with the
 card's name and power limit and, when this run built the kernels, what
 ``nvcc -Xptxas -v`` reported for K2's, K6/K7's and K8's entry functions
 (registers, stack frame, spill stores and loads).  ``--root`` imports
@@ -63,7 +62,6 @@ def main() -> int:
                     usage[name] = " ".join(x.replace("ptxas info    :", "").strip()
                                            for x in lines[i + 1:i + 4]
                                            if "stack frame" in x or "registers" in x)
-    placements = [None] + ([0] if hasattr(ft, "CULL_SHARED_BYTES") else [])
     out = {"root": args.root, "rays": args.rays, "card": cs.card_line(), "ptxas": usage}
     config = TraceConfig(generation_limit=cs.MLA_GENERATIONS, fixed_loop=True)
     for dtype in (torch.float32, torch.float64):
@@ -80,28 +78,22 @@ def main() -> int:
             records, masks, _ = ft.fused_trace_wide(spec, config, *inputs)
             plan = fg.loss_plan(metrics.RmsSpotRadius(float(detector.get_id())))
             scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
-            for limit in placements:
-                suffix = "" if limit is None else "_ldg"
-                if limit is not None:
-                    saved, ft.CULL_SHARED_BYTES = ft.CULL_SHARED_BYTES, limit
-                out[f"k2_{grid_name}_{tag}{suffix}_ms"] = cs.cuda_ms(
-                    torch, lambda: ft.fused_trace_wide(spec, config, *inputs))
-                if grid_name == "bench":
-                    def k8():
-                        return fg.fused_bwd_wide(spec, config, *inputs, records, masks,
-                                                 scal=scal, plan=plan)
+            out[f"k2_{grid_name}_{tag}_ms"] = cs.cuda_ms(
+                torch, lambda: ft.fused_trace_wide(spec, config, *inputs))
+            if grid_name == "bench":
+                def k8():
+                    return fg.fused_bwd_wide(spec, config, *inputs, records, masks,
+                                             scal=scal, plan=plan)
 
-                    out[f"k8_{tag}{suffix}_ms"] = cs.cuda_ms(torch, k8)
+                out[f"k8_{tag}_ms"] = cs.cuda_ms(torch, k8)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        k8()
                     torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(5):
-                            k8()
-                        torch.cuda.synchronize()
-                    per_ray = [cs.device_us(e) / e.count / 1e3 for e in prof.key_averages()
-                               if "wide_fused_bwd_kernel" in e.key and cs.device_us(e) > 0]
-                    out[f"k8_per_ray_device_{tag}{suffix}_ms"] = per_ray[0] if per_ray else None
-                if limit is not None:
-                    ft.CULL_SHARED_BYTES = saved
+                per_ray = [cs.device_us(e) / e.count / 1e3 for e in prof.key_averages()
+                           if "wide_fused_bwd_kernel" in e.key and cs.device_us(e) > 0]
+                out[f"k8_per_ray_device_{tag}_ms"] = per_ray[0] if per_ray else None
             del rays, inputs, records, masks
         del scene
         torch.cuda.empty_cache()

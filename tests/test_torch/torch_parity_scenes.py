@@ -212,12 +212,47 @@ def hetero_wall(m, n_elements=20, seed=0, pitch=2.6):
     return elements + [m.comp.baffle((span, span)).move_x(6.0)]
 
 
+def meniscus_wall(m, n=6, seed=1, pitch=2.2):
+    """An n x n grid (in yz) of distinct meniscus lenses, each a cylinder
+    minus a sphere (the concave front, r1 < 0) intersected with a sphere
+    (the convex back): one same-shape group of n^2 three-leaf trees whose
+    interval program holds a difference, in three chunks at n = 6, plus a
+    detector."""
+    rng = np.random.default_rng(seed)
+    elements = []
+    for i in range(n * n):
+        r1 = -(3.0 + 2.0 * rng.random())
+        r2 = -(1.6 + 0.6 * rng.random())
+        y, z = ((i // n) - (n - 1) / 2.0) * pitch, ((i % n) - (n - 1) / 2.0) * pitch
+        elements.append(
+            m.comp.thick_lens(r1, r2, 0.3 + 0.2 * rng.random(), aperture=1.4 + 0.4 * rng.random(),
+                              material=m.matl.glass["BK7"]).move(0.0, y, z)
+        )
+    span = 2.0 * n * pitch
+    return elements + [m.comp.baffle((span, span)).move_x(6.0)]
+
+
+def sphere_lens_wall(m, n=6, pitch=2.2):
+    """An n x n grid (in yz) of bare biconvex lenses, each the intersection
+    of two unit spheres 1.4 apart along x (no aperture cylinder), plus a
+    detector: one same-shape group of n^2 two-sphere trees."""
+    elements = []
+    for i in range(n * n):
+        y, z = ((i // n) - (n - 1) / 2.0) * pitch, ((i % n) - (n - 1) / 2.0) * pitch
+        front = m.Sphere(1.0, material=m.matl.glass["BK7"]).move_x(0.7)
+        back = m.Sphere(1.0, material=m.matl.glass["BK7"]).move_x(-0.7)
+        elements.append(m.csg.intersect(front, back).move(0.0, y, z))
+    span = 2.0 * n * pitch
+    return elements + [m.comp.baffle((span, span)).move_x(6.0)]
+
+
 # name -> (builder, grid rays: (width, height, x), n rays, generation limit)
 WIDE_SCENES = {
     "mla5": (lambda m: mla(m, 5), (4.2, 4.2, -1.0), 256, 4),
     "mla6": (lambda m: mla(m, 6), (5.4, 5.4, -1.0), 256, 4),
     "csg_singles": (mla_with_csg_singles, (4.2, 4.2, -2.0), 256, 5),
     "hetero": (hetero_wall, (20 * 2.6 * 0.95, 1.0, -1.5), 256, 4),
+    "meniscus": (meniscus_wall, (6 * 2.2 * 0.95, 6 * 2.2 * 0.95, -1.5), 1024, 4),
 }
 
 
@@ -245,6 +280,20 @@ def grid_rays(width, height, x, n, wavelength=0.633):
 def wide_rays(name, n=None):
     _, (width, height, x), n_default, _ = WIDE_SCENES[name]
     return grid_rays(width, height, x, n or n_default)
+
+
+def far_rays(n, dist, half, seed):
+    """Rays from origins ``dist`` behind the plane x = 0 (spread over 2% of
+    the distance sideways) to random points within ``half`` of the axis on
+    it: (p, v) (3, n) float64 tensors."""
+    rng = np.random.default_rng(seed)
+    target = np.zeros((3, n))
+    target[1:] = rng.uniform(-half, half, (2, n))
+    src = np.zeros((3, n))
+    src[0] = -dist
+    src[1:] = rng.uniform(-half, half, (2, n)) + rng.uniform(-0.02, 0.02, (2, n)) * dist
+    d = target - src
+    return torch.as_tensor(src), torch.as_tensor(d / np.linalg.norm(d, axis=0))
 
 
 def follows_float64_path(records32, masks32, records64, masks64):
