@@ -28,8 +28,12 @@ raises, and any failure exits non-zero:
              tests/test_analysis/test_optimize.py at 2**20 rays, float32,
              through K1 + K3; then 5 steps with a generic loss through
              K1 + K4;
-8. backward times — K3, K4 and their plain versions on the condenser at
-             float32, CUDA events, beside each kernel's bound;
+8. backward times — K3, K4 and their plain versions on the condenser and
+             on the 31-leaf hetero row (10 elements of the lens wall, 4
+             material slots, 2**20 rays on an unsorted line across them, 5
+             generations) at float32, CUDA events, beside each kernel's
+             bound; two K3 and two K4 launches bit-identical on both; the
+             backward's registers, stack frame and spills from ptxas;
 9. wide compare — the wide kernel K2 against its plain version on the
              16x16 microlens array of examples/microlens_array.py (513
              leaves, 2**20 rays, 4 generations) and on the 20-element
@@ -132,12 +136,14 @@ PEAK_F32 = 67e12
 # normal (50), refraction with its Sellmeier index (75), record, tilt and
 # push-off (15); the backward adds the hit leaf's re-intersection and
 # endpoint derivative (100), the adjoints of the normal (110), refraction
-# and Sellmeier (150), tilt and record (40), and the block's staged
-# parameter fold (22 S + 7 M adds per ray)
+# and Sellmeier (150), tilt and record (40), and the sums of the hit leaf's
+# 18 and the glass row's 7 parameter cotangents (25 adds: the function's
+# work, whatever order a kernel sums them in)
 LOCAL_RAY = 33
 INTERSECT = {0: 26, 1: 30, 2: 12, 3: 14, 4: 28}  # sphere, paraboloid, plane, cube, cylinder
 INTERACT = 140
 ADJOINT = 400
+PARAM_SUMS = 18 + 7
 
 
 # examples/microlens_array.py: a 16x16 array of plano-convex lenslets (mm)
@@ -188,6 +194,62 @@ def hetero_wall(comp, matl, n_elements=20, seed=0, pitch=2.6):
                                         material=glasses[i % 3]).move_y(y))
     span = n_elements * pitch
     return elements + [comp.baffle((span, span)).move_x(6.0)]
+
+
+HETERO_ROW = 10  # elements of the hetero row: 31 leaves, the narrow limit's side
+HETERO_ROW_GENERATIONS = 5
+HETERO_ROW_HALF = 12.35  # half-width of its line of rays (0.95 of the row)
+
+
+def hetero_row_rays(interop, device, dtype, n, seed=5):
+    """tests/test_torch/torch_parity_scenes.py's "hetero_row" rays: +X
+    rays from x = -1.5 on an unsorted line across the row (neighbouring
+    rays land on any element), positions jittered by 1e-4, wavelengths
+    uniform over 0.45-0.65."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((4, n))
+    pos[:3] = np.array([-1.5, 0.0, 0.0])[:, None] + rng.normal(0.0, 1e-4, (3, n))
+    pos[3] = 1.0
+    pos[1] += rng.uniform(-HETERO_ROW_HALF, HETERO_ROW_HALF, n)
+    dirs = np.zeros((4, n))
+    dirs[0] = 1.0
+    meta = np.stack((np.zeros(n), np.full(n, 100.0), rng.uniform(0.45, 0.65, n), np.ones(n),
+                     np.arange(n, dtype=float)))
+    return interop.rays_from_numpy(pos, dirs, meta, device=device, dtype=dtype)
+
+
+def narrow_bwd_bytes(records, masks, run, n_leaves, n_glass, item):
+    """(K3 bytes, K4 bytes, ray-generations run, skip checks): what this
+    run's data makes the narrow backward read and write.  Per generation a
+    ray ran: 15 record rows (K4 also 15 d_records rows); per generation a
+    ray did not run whose mask before it is set: 3 tilt rows (to see the
+    skip); masks[0..G-2] (K3 also the last mask of the rays that ran the
+    last generation); 11 state0 rows (K4 also 11 d_fstate rows; the w rows
+    are constants); 13 d_state0 rows written; the scene's tables read and
+    their cotangents written."""
+    g, n = masks.shape
+    ran = int(run.sum())
+    skip_checks = int((masks[:-1] & ~run[1:]).sum())
+    table_bytes = item * (22 * n_leaves + 7 * n_glass) * 2
+    k3 = (item * (15 * ran + 3 * skip_checks + 11 * n + 13 * n) + (g - 1) * n
+          + int(run[-1].sum()) + table_bytes)
+    k4 = k3 - int(run[-1].sum()) + item * (15 * ran + 11 * n)
+    return k3, k4, ran, skip_checks
+
+
+def ptxas_usage(log, kernel):
+    """{entry: "registers, stack, spills"} of the entry functions named
+    ``kernel`` in an ``nvcc -Xptxas -v`` log."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and ("registers" in line or "stack frame" in line):
+            usage[entry] = (usage.get(entry, "") + " " + line.replace("ptxas info    :", "")
+                            .strip()).strip()
+    return usage
 
 
 def lenslet_offsets(torch, y, z, n):
@@ -602,7 +664,7 @@ def flops_per_ray_generation(spec, backward: bool) -> int:
     forward = sum(LOCAL_RAY + INTERSECT[t] for t in spec.leaf_types) + INTERACT
     if not backward:
         return forward
-    return forward + ADJOINT + 22 * spec.n_leaves + 7 * len(spec.mat_kinds)
+    return forward + ADJOINT + PARAM_SUMS
 
 
 def bound(bytes_moved, flops):
@@ -1354,6 +1416,7 @@ def main() -> int:
 
     import pyrayt_tpu_torch as pyrayt
     from pyrayt_tpu_torch import components as comp
+    from pyrayt_tpu_torch import interop
     from pyrayt_tpu_torch import materials as matl
     from pyrayt_tpu_torch.analysis import build_objective, metrics, optimize
     from pyrayt_tpu_torch.config import TraceConfig
@@ -1669,68 +1732,98 @@ def main() -> int:
     log("training step breakdown (float32, 2**20 rays):", json.dumps(breakdown))
     phase_seconds["training"] = time.perf_counter() - phase_start
 
-    # 8. backward times on the condenser, float32 ----------------------------
+    # 8. backward times on the condenser and the hetero row, float32 -------
     phase_start = time.perf_counter()
-    scene, rays, sid = condenser_scene(torch.float32)
-    spec = scene.spec
-    state0, obj_tx, prim, glass = ft.kernel_inputs(scene.params, rays)
     saved = (ft.fused_trace.launches, fg.fused_bwd_loss.launches, fg.fused_bwd.launches)
-    records, masks, fstate = ft.fused_trace(spec, grad_config, state0, obj_tx, prim, glass)
-    plan = fg.loss_plan(metrics.RmsSpotRadius(sid))
-    scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
-    gen = torch.Generator(device=device).manual_seed(0)
-    d_records = torch.randn(records.shape, generator=gen, device=device) * masks[:, None]
-    d_fstate = torch.randn(state0.shape, generator=gen, device=device)
-    bwd_args = (spec, grad_config, state0, obj_tx, prim, glass, records, masks)
-    torch.cuda.reset_peak_memory_stats()
-    k3_ms = cuda_ms(torch, lambda: fg.fused_bwd_loss(*bwd_args, scal, plan))
-    k4_ms = cuda_ms(torch, lambda: fg.fused_bwd(*bwd_args, d_records, d_fstate))
-    kernel_peak = torch.cuda.max_memory_allocated()
-    k3_plain_ms = cuda_ms(torch, lambda: fg.fused_bwd_loss_plain(*bwd_args, scal, plan),
-                          repeats=3, warmup=1)
-    k4_plain_ms = cuda_ms(torch, lambda: fg.fused_bwd_plain(*bwd_args, d_records, d_fstate),
-                          repeats=3, warmup=1)
+    item = 4
+    n, g = N_RAYS, GENERATIONS
+
+    def narrow_bwd_case(scene, rays, sid, config, label):
+        """K3's and K4's times, bounds and repeats on one scene; the inputs
+        of the K1 trace they differentiate."""
+        spec = scene.spec
+        inputs = ft.kernel_inputs(scene.params, rays)
+        records, masks, _ = ft.fused_trace(spec, config, *inputs)
+        plan = fg.loss_plan(metrics.RmsSpotRadius(sid))
+        scal = plan.row(plan.scalars(records, masks), torch.ones((), device=device))
+        gen = torch.Generator(device=device).manual_seed(0)
+        d_records = torch.randn(records.shape, generator=gen, device=device) * masks[:, None]
+        d_fstate = torch.randn(inputs[0].shape, generator=gen, device=device)
+        bwd_args = (spec, config, *inputs, records, masks)
+        repeats = {}
+        for name, fn in (("k3", lambda: fg.fused_bwd_loss(*bwd_args, scal, plan)),
+                         ("k4", lambda: fg.fused_bwd(*bwd_args, d_records, d_fstate))):
+            first, second = fn(), fn()
+            repeats[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+        torch.cuda.reset_peak_memory_stats()
+        out = {
+            "k3_ms": cuda_ms(torch, lambda: fg.fused_bwd_loss(*bwd_args, scal, plan)),
+            "k4_ms": cuda_ms(torch, lambda: fg.fused_bwd(*bwd_args, d_records, d_fstate)),
+            "kernel_peak": torch.cuda.max_memory_allocated(),
+            "k3_plain_ms": cuda_ms(torch, lambda: fg.fused_bwd_loss_plain(*bwd_args, scal, plan),
+                                   repeats=3, warmup=1),
+            "k4_plain_ms": cuda_ms(torch, lambda: fg.fused_bwd_plain(*bwd_args, d_records,
+                                                                     d_fstate),
+                                   repeats=3, warmup=1),
+            "repeats_bit_identical": repeats,
+        }
+        run = fg.generations_ran(records, masks)  # (G, n): the generations each ray ran
+        k3_bytes, k4_bytes, ran, skip_checks = narrow_bwd_bytes(
+            records, masks, run, spec.n_leaves, inputs[3].shape[0], item)
+        flops = ran * flops_per_ray_generation(spec, backward=True)
+        out.update(bytes={"k3": k3_bytes, "k4": k4_bytes}, ran=ran, skip_checks=skip_checks,
+                   k3_bound=bound(k3_bytes, flops), k4_bound=bound(k4_bytes, flops))
+        log(f"backward times, {label} ({rays.n_rays} rays x {config.generation_limit} "
+            f"generations, {ran} ray-generations run, {skip_checks} skip checks, float32, "
+            f"median): K3 {out['k3_ms']:.4f} ms, K4 {out['k4_ms']:.4f} ms; plain K3 "
+            f"{out['k3_plain_ms']:.2f} ms, plain K4 {out['k4_plain_ms']:.2f} ms; bounds K3 "
+            f"{out['k3_bound'][0]:.4f} ms ({out['k3_bound'][1]}), K4 {out['k4_bound'][0]:.4f} ms "
+            f"({out['k4_bound'][1]}); two launches bit-identical {json.dumps(repeats)}; kernel "
+            f"peak memory {out['kernel_peak'] / 2**30:.3f} GiB on {card}")
+        assert all(repeats.values()), (label, repeats)
+        return out, (spec, records, masks, run, ran)
+
+    scene, rays, sid = condenser_scene(torch.float32)
+    cond, (spec, records, masks, run, ran) = narrow_bwd_case(scene, rays, sid, grad_config,
+                                                             "condenser")
+    k3_ms, k4_ms = cond["k3_ms"], cond["k4_ms"]
+    k3_plain_ms, k4_plain_ms = cond["k3_plain_ms"], cond["k4_plain_ms"]
+    k3_bound, k4_bound = cond["k3_bound"], cond["k4_bound"]
     params = {k: v.detach().clone().requires_grad_(True) for k, v in scene.params.items()}
     plain_value = metrics.RmsSpotRadius(sid)(plain_result(scene, params, rays))
     autograd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         plain_value, list(params.values()), retain_graph=True), repeats=3, warmup=1)
-    ft.fused_trace.launches, fg.fused_bwd_loss.launches, fg.fused_bwd.launches = saved
-    run = fg.generations_ran(records, masks)  # (G, n): the generations each ray ran
-    ran = int(run.sum())
-    # generations a ray did not run whose tilt rows the backward reads to
-    # see the skip (the mask before them is set)
-    skip_checks = int((masks[:-1] & ~run[1:]).sum())
-    item = 4
-    n, g = N_RAYS, GENERATIONS
-    table_bytes = item * (22 * spec.n_leaves + 7 * glass.shape[0]) * 2
+    log(f"plain autograd backward of fused_trace_plain on the condenser {autograd_ms:.2f} ms")
     # K1 writes every generation's records (zeros where a ray stopped)
+    table_bytes = item * (22 * spec.n_leaves + 7 * len(spec.mat_kinds)) * 2
     k1_bytes = item * (15 * g * n + 2 * 13 * n) + g * n + table_bytes
-    # the backward reads what this run's data makes it read: 15 record rows
-    # per generation run, 3 tilt rows per skip check, masks[0..G-2] (K3 also
-    # the last mask of rays that ran the last generation), 11 state0 rows
-    # (the w rows are constants), and writes 13 d_state0 rows
-    k3_bytes = (item * (15 * ran + 3 * skip_checks + 11 * n + 13 * n)
-                + (g - 1) * n + int(run[-1].sum()) + table_bytes)
-    # K4 adds 15 d_records rows per generation run and 11 d_fstate rows, and
-    # reads no mask of the last generation
-    k4_bytes = k3_bytes - int(run[-1].sum()) + item * (15 * ran + 11 * n)
     k1_bound = bound(k1_bytes, ran * flops_per_ray_generation(spec, backward=False))
-    k3_bound = bound(k3_bytes, ran * flops_per_ray_generation(spec, backward=True))
-    k4_bound = bound(k4_bytes, ran * flops_per_ray_generation(spec, backward=True))
-    log(f"backward times ({N_RAYS} rays x {GENERATIONS} generations, {ran} ray-generations "
-        f"run, {skip_checks} skip checks, float32, median): K3 {k3_ms:.4f} ms, "
-        f"K4 {k4_ms:.4f} ms; plain K3 {k3_plain_ms:.2f} ms, plain K4 {k4_plain_ms:.2f} ms, "
-        f"plain autograd backward of fused_trace_plain {autograd_ms:.2f} ms; kernel peak memory "
-        f"{kernel_peak / 2**30:.3f} GiB on {card}")
+    del scene, rays, params, plain_value, records, masks, run
+    torch.cuda.empty_cache()
+
+    with fresh_ids():
+        row_parts = hetero_wall(comp, matl, n_elements=HETERO_ROW)
+        row_scene = compile_scene(row_parts, device=device, dtype=torch.float32)
+    assert ft.supports_fused(row_scene.spec) and row_scene.spec.n_leaves == 3 * HETERO_ROW + 1
+    row_rays = hetero_row_rays(interop, device, torch.float32, N_RAYS)
+    row, _ = narrow_bwd_case(
+        row_scene, row_rays, float(row_scene.spec.leaf_ids[-1]),
+        TraceConfig(generation_limit=HETERO_ROW_GENERATIONS, fixed_loop=True), "hetero row")
+    ft.fused_trace.launches, fg.fused_bwd_loss.launches, fg.fused_bwd.launches = saved
+    bwd_usage = ptxas_usage(ft.build_kernels()["fused_grad"][2], "fused_bwd_kernel")
+    log("backward build (ptxas): " + json.dumps(bwd_usage))
     log("bounds: " + json.dumps({
         "fused_trace": {"bytes": k1_bytes, "ms": k1_bound[0], "by": k1_bound[1]},
-        "fused_bwd_loss": {"bytes": k3_bytes, "ms": k3_bound[0], "by": k3_bound[1]},
-        "fused_bwd": {"bytes": k4_bytes, "ms": k4_bound[0], "by": k4_bound[1]},
+        "fused_bwd_loss": {"bytes": cond["bytes"]["k3"], "ms": k3_bound[0], "by": k3_bound[1]},
+        "fused_bwd": {"bytes": cond["bytes"]["k4"], "ms": k4_bound[0], "by": k4_bound[1]},
+        "hetero_row": {"k3_bytes": row["bytes"]["k3"], "k3_ms": row["k3_bound"][0],
+                       "k3_by": row["k3_bound"][1], "k4_bytes": row["bytes"]["k4"],
+                       "k4_ms": row["k4_bound"][0], "k4_by": row["k4_bound"][1]},
         "flops_per_ray_generation": {"forward": flops_per_ray_generation(spec, False),
                                      "backward": flops_per_ray_generation(spec, True)},
     }))
     phase_seconds["backward_times"] = time.perf_counter() - phase_start
-    del scene, rays, state0, obj_tx, prim, glass, records, masks, fstate, d_records, d_fstate
+    del row_scene, row_rays
     torch.cuda.empty_cache()
 
     wide_kernels = wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceConfig,

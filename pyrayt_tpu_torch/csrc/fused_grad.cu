@@ -18,10 +18,12 @@
 //   * state reconstruction: generation 0 starts from the true initial state;
 //     generation g > 0 from its record rows (positions x0..z0, directions
 //     from the tilt rows, metadata rows 0-4).
-//   * forward recompute of that generation (trace_common.cuh: the same
-//     nearest hit as K1), then the adjoint: record cotangent + carried
-//     state cotangent -> input-state cotangent and the cotangents of the
-//     hit leaf's 16 transform and 6 primitive entries and of the glass row.
+//   * forward recompute of that generation (the same nearest hit as K1,
+//     with the hit code of the winning endpoint carried out of the fold,
+//     so the winner's intersector runs once), then the adjoint: record
+//     cotangent + carried state cotangent -> input-state cotangent and the
+//     cotangents of the hit leaf's 16 transform and 6 primitive entries
+//     and of the glass row.
 //   * the record cotangent is read from d_records (K4) or synthesized from
 //     the loss plan's scalar row (K3: RmsSpotRadius, FocusError,
 //     SoftFocusError, the formulas of ops/fused_grad.py's plans); K3's
@@ -33,12 +35,26 @@
 // bound, a plane, a cube face).  Normals are differentiated in K1's form
 // (lp = M p_hit + m, inverse-transpose, guarded normalization, scale).
 //
-// Deterministic parameter sums: after each generation every thread stages
-// its (leaf, 18 geometry values, glass slot, 7 values) in shared memory and
-// thread j folds the staged rays, in ray order, into the block's entries j,
-// j + 128, ...; per-block partials (float64) go to a scratch buffer that a
-// second kernel reduces in fixed order.  No atomics: two launches on the
-// same inputs give bit-identical gradients.
+// Deterministic parameter sums, per warp: after each generation the 32
+// lanes of a warp fold their hit leaf's 18 values and their glass slot's 7
+// into the warp's own float64 row of entries in shared memory, choosing by
+// the number of distinct keys (__match_any_sync, __ballot_sync).  Up to
+// three: key by key, the lanes of a key found in ascending lane order and
+// each value summed over the warp by a fixed xor butterfly of
+// __shfl_xor_sync, lane 0 adding the sums.  More: column by column, the
+// values staged in the warp's rows of shared memory and lane j < 25 adding
+// value j of the 32 lanes in lane order into its entries (distinct entries
+// per lane, a run of lanes with one key summed in a register first).  The
+// butterfly's cost grows with the keys, the column fold's does not (PERF.md:
+// the condenser's warps hold one or two keys a generation, a warp of the
+// hetero row's unsorted line about ten).  Only __syncwarp orders the
+// fold: no barrier inside the generation loop, and every lane runs all G
+// generations (a lane that did not run one has no key), so the warp's
+// collectives see the full mask.  After the loop the block adds its warps'
+// rows in warp order into its per-block partial (float64), and a second
+// kernel reduces the partials in fixed order.  Fixed lanes, shuffle trees,
+// warp and block orders and no atomics: two launches on the same inputs
+// give bit-identical gradients.
 //
 // Numerics: FMA contraction stays on (as in K1), so at float64 the result
 // differs from the plain autograd version by rounding and sum order; sums
@@ -50,13 +66,230 @@
 // the initial state and, in K4, d_fstate, and writes d_state0 (13*n); no
 // other row of a generation it did not run is read.  Per ray and
 // generation it recomputes the whole forward step and its adjoint: branchy
-// scalar math, with the CSG lists in local memory, as K1.
+// scalar math, with the CSG lists in local memory, as K1.  The fold costs a
+// warp a few hundred instructions per generation, whatever the scene's
+// size (the block-wide scan it replaced read every entry of the scene for
+// each of the block's 128 rays in every generation, behind two block
+// barriers).
 
 #include "adjoint_common.cuh"
 
 namespace {
 
 using namespace pyrayt;
+
+constexpr int kBwdThreads = 128;  // threads per block
+constexpr int kWarps = kBwdThreads / 32;
+
+// a candidate's leaf and the hit code of its endpoint in one id, so the
+// interval and network payloads carry the code to the nearest hit
+__device__ __forceinline__ int coded(int s, int code) { return s * 16 + code + 1; }
+
+// trace_common.cuh's iv_apply with each endpoint of b tagged with its hit
+// code (coded ids)
+template <typename T>
+__device__ __forceinline__ void iv_apply_coded(Intervals<T>& iv, int op, Pair<T> b, int s) {
+  const int s_lo = coded(s, b.clo), s_hi = coded(s, b.chi);
+  if (op == IV_LOAD) {
+    iv.lo[0] = b.lo; iv.hi[0] = b.hi; iv.lo_id[0] = s_lo; iv.hi_id[0] = s_hi;
+    iv.n = 1;
+  } else if (op == IV_AND) {
+    for (int j = 0; j < iv.n; ++j) {
+      T a0 = iv.lo[j], a1 = iv.hi[j];
+      T lo = mx(a0, b.lo), hi = mn(a1, b.hi);
+      iv.lo_id[j] = b.lo > a0 ? s_lo : iv.lo_id[j];
+      iv.hi_id[j] = b.hi < a1 ? s_hi : iv.hi_id[j];
+      bool empty = lo > hi;
+      iv.lo[j] = empty ? inf_v<T>() : lo;
+      iv.hi[j] = empty ? inf_v<T>() : hi;
+    }
+  } else {  // IV_SUB
+    for (int j = iv.n - 1; j >= 0; --j) {
+      T a0 = iv.lo[j], a1 = iv.hi[j];
+      int i0 = iv.lo_id[j], i1 = iv.hi_id[j];
+      T p1_hi = mn(a1, b.lo);
+      int p1_hi_id = b.lo < a1 ? s_lo : i1;
+      bool e1 = a0 > p1_hi;
+      T p2_lo = mx(a0, b.hi);
+      int p2_lo_id = b.hi > a0 ? s_hi : i0;
+      bool e2 = p2_lo > a1;
+      iv.lo[2 * j] = e1 ? inf_v<T>() : a0;
+      iv.hi[2 * j] = e1 ? inf_v<T>() : p1_hi;
+      iv.lo_id[2 * j] = i0;
+      iv.hi_id[2 * j] = p1_hi_id;
+      iv.lo[2 * j + 1] = e2 ? inf_v<T>() : p2_lo;
+      iv.hi[2 * j + 1] = e2 ? inf_v<T>() : a1;
+      iv.lo_id[2 * j + 1] = p2_lo_id;
+      iv.hi_id[2 * j + 1] = i1;
+    }
+    iv.n *= 2;
+  }
+}
+
+// trace_common.cuh's nearest_hit (the same candidates in the same fold
+// order, strict <), which also returns the hit code of the winning
+// endpoint, so the adjoint need not evaluate the winner's intersector again
+template <typename T>
+__device__ void nearest_hit_coded(const Scene<T>& sc, const T p[3], const T v[3], T& best,
+                                  int& leaf, int& code) {
+  Intervals<T> iv;
+  iv.n = 0;
+  T row_key[kMaxRows];
+  int row_id[kMaxRows];
+  int top = 0;
+  int win = -1;
+  best = inf_v<T>();
+  auto fold = [&](T cand, int id) {
+    cand = cand > T(0) ? cand : inf_v<T>();
+    if (cand < best) {
+      best = cand;
+      win = id;
+    }
+  };
+  for (int k = 0; k < sc.n_instr; ++k) {
+    const int* in = sc.instr + kInstrWidth * k;
+    const int s = in[1];
+    switch (in[0]) {
+      case IV_LOAD:
+      case IV_AND:
+      case IV_SUB:
+        iv_apply_coded(iv, in[0], leaf_pair(sc, s, p, v), s);
+        break;
+      case IV_FOLD:
+        for (int j = 0; j < iv.n; ++j) {
+          fold(iv.lo[j], iv.lo_id[j]);
+          fold(iv.hi[j], iv.hi_id[j]);
+        }
+        break;
+      case NET_PUSH: {
+        Pair<T> h = leaf_pair(sc, s, p, v);
+        row_key[top] = h.lo; row_id[top] = coded(s, h.clo);
+        row_key[top + 1] = h.hi; row_id[top + 1] = coded(s, h.chi);
+        top += 2;
+        break;
+      }
+      case NET_COMBINE: {
+        // the network sorts its ids as payloads: coded ids ride along
+        int base = top - in[2] - in[3];
+        network_combine(sc, in, row_key + base, row_id + base);
+        break;
+      }
+      case NET_FOLD:
+        for (int j = 0; j < top; ++j) fold(row_key[j], row_id[j]);
+        top = 0;
+        break;
+      default:  // a narrow program has no wide group
+        break;
+    }
+  }
+  leaf = win < 0 ? -1 : win / 16;
+  code = win < 0 ? C_NONE : win % 16 - 1;
+}
+
+constexpr int kFoldValues = kGeo + kGlass;  // values a lane hands to the fold
+constexpr int kStageRow = 33;                // lanes per staged value, padded
+constexpr unsigned kFullMask = 0xffffffffu;
+// distinct keys (leaves and glass slots) up to which a warp folds key by key
+constexpr int kKeyFoldMax = 3;
+
+// the lanes holding the lowest lane of each distinct key >= 0
+__device__ __forceinline__ unsigned key_leaders(int key) {
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  return __ballot_sync(kFullMask, key >= 0 && __ffs(peers) - 1 == (threadIdx.x & 31));
+}
+
+// the sum of v over the warp's 32 lanes by a fixed xor butterfly: every
+// lane ends with the same bits (each step adds the same two values in
+// either lane)
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int offset = 16; offset > 0; offset /= 2) v += __shfl_xor_sync(kFullMask, v, offset);
+  return v;
+}
+
+// For each key of `leaders` in ascending lane order, each of the COUNT
+// values summed over the lanes holding that key (the others adding 0);
+// lane 0 adds sum k to row[entry(key, k)].
+template <int COUNT, typename T, typename Entry>
+__device__ __forceinline__ void fold_keys(double* row, int key, const T* vals, unsigned leaders,
+                                          Entry entry) {
+  while (leaders) {
+    const int target = __shfl_sync(kFullMask, key, __ffs(leaders) - 1);
+    leaders &= leaders - 1;
+    const bool mine = key == target;
+#pragma unroll
+    for (int k = 0; k < COUNT; ++k) {
+      const double sum = warp_sum(mine ? static_cast<double>(vals[k]) : 0.0);
+      if ((threadIdx.x & 31) == 0) row[entry(target, k)] += sum;
+    }
+  }
+}
+
+// One generation of a warp into its accumulator row `row` (entries:
+// d_objtx (16 S), d_prim (6 S), d_glass (7 M)) from each lane's hit leaf's
+// 18 values (transform rows 0-2, then prim; row 3 of the transform never
+// enters the step) and its glass slot's 7 (keys -1: none).  With few
+// distinct keys, key by key: each value summed over the warp by a shuffle
+// butterfly.  With more, column by column: the lanes stage their keys and
+// values in the warp's rows of shared memory, then lane j < 25 adds value
+// j of the 32 lanes in lane order into its entries, a run of lanes with
+// one key summed in a register first.  Both orders are fixed and need no
+// atomics (in the column fold the lanes add into distinct entries).
+template <typename T>
+__device__ __forceinline__ void warp_fold(double* row, T* stage, int* keys, int n_leaves, int leaf,
+                                          const T geo[kGeo], int slot, const T gl[kGlass]) {
+  auto geo_entry = [n_leaves](int s, int k) {
+    return k < 12 ? 16 * s + k : 16 * n_leaves + 6 * s + (k - 12);
+  };
+  auto glass_entry = [n_leaves](int m, int k) { return 22 * n_leaves + kGlass * m + k; };
+  const unsigned geo_leaders = key_leaders(leaf), glass_leaders = key_leaders(slot);
+  if (__popc(geo_leaders) + __popc(glass_leaders) <= kKeyFoldMax) {
+    fold_keys<kGeo>(row, leaf, geo, geo_leaders, geo_entry);
+    fold_keys<kGlass>(row, slot, gl, glass_leaders, glass_entry);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  keys[lane] = leaf;
+  keys[32 + lane] = slot;
+  if (leaf >= 0) {
+    for (int k = 0; k < kGeo; ++k) stage[k * kStageRow + lane] = geo[k];
+  }
+  if (slot >= 0) {
+    for (int k = 0; k < kGlass; ++k) stage[(kGeo + k) * kStageRow + lane] = gl[k];
+  }
+  __syncwarp();
+  if (lane < kFoldValues) {
+    const bool is_glass = lane >= kGeo;
+    const int k = is_glass ? lane - kGeo : lane;
+    const int* key = keys + (is_glass ? 32 : 0);
+    const T* value = stage + lane * kStageRow;
+    auto entry = [&](int s) { return is_glass ? glass_entry(s, k) : geo_entry(s, k); };
+    int run = -1;
+    double sum = 0.0;
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {
+      const int s = key[r];
+      if (s != run) {
+        if (run >= 0) row[entry(run)] += sum;
+        run = s;
+        sum = 0.0;
+      }
+      if (s >= 0) sum += static_cast<double>(value[r]);
+    }
+    if (run >= 0) row[entry(run)] += sum;
+  }
+  __syncwarp();
+}
+
+// dynamic shared memory of a block: the warps' accumulator rows and
+// staging rows, the scene's tables, the loss plan's scalars, the warps'
+// staged keys and the program
+template <typename T>
+size_t bwd_smem_bytes(int n_leaves, int n_glass, int program_len) {
+  const size_t n_entries = 22 * static_cast<size_t>(n_leaves) + kGlass * static_cast<size_t>(n_glass);
+  return sizeof(double) * kWarps * n_entries +
+         sizeof(T) * (kWarps * kFoldValues * kStageRow + n_entries + kMaxScal) +
+         sizeof(int) * (kWarps * 64 + static_cast<size_t>(program_len));
+}
 
 // One generation of one ray: recompute the forward step from `x`, then map
 // the cotangents of its outputs (the next state `bar` and the record `rb`)
@@ -74,8 +307,8 @@ __device__ void step_adjoint(const Scene<T>& sc, T ray_offset, T world_index, T 
 
   // ---- forward recompute (fused_trace.cu, one generation) ----------------
   T best;
-  int leaf;
-  nearest_hit(sc, x.p, x.v, best, leaf);
+  int leaf, code;
+  nearest_hit_coded(sc, x.p, x.v, best, leaf, code);
   const bool no_hit = leaf < 0;
   const T t = no_hit ? T(0) : best;
   T ph[3];
@@ -117,7 +350,6 @@ __device__ void step_adjoint(const Scene<T>& sc, T ray_offset, T world_index, T 
   if (!no_hit) {
     // the hit distance: the winning endpoint of the hit leaf
     T o_bar[3] = {T(0), T(0), T(0)}, d_bar[3] = {T(0), T(0), T(0)};
-    const int code = endpoint_code(leaf_pair(sc, leaf, x.p, x.v), best);
     hit_distance_adjoint(L[0], m, pr, x.p, x.v, code, best, t_bar, o_bar, d_bar, m_bar, pr_bar,
                          a.p_bar, a.v_bar);
   }
@@ -125,7 +357,7 @@ __device__ void step_adjoint(const Scene<T>& sc, T ray_offset, T world_index, T 
 }
 
 template <typename T, bool LOSS>
-__global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
+__global__ void __launch_bounds__(kBwdThreads) fused_bwd_kernel(
     const T* __restrict__ state0, long long n, int generations,
     const T* __restrict__ objtx, const T* __restrict__ prim, const T* __restrict__ glass,
     const int* __restrict__ program, int program_len, int n_leaves, int n_glass,
@@ -136,27 +368,29 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
     T* __restrict__ dstate0, double* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_entries = 22 * n_leaves + kGlass * n_glass;
-  double* acc = reinterpret_cast<double*>(smem);
-  double* st_geo = acc + n_entries;
-  double* st_gl = st_geo + kGeo * kThreads;
-  T* s_objtx = reinterpret_cast<T*>(st_gl + kGlass * kThreads);
+  double* acc = reinterpret_cast<double*>(smem);  // (kWarps, n_entries)
+  T* stage = reinterpret_cast<T*>(acc + kWarps * n_entries);  // (kWarps, 25, kStageRow)
+  T* s_objtx = stage + kWarps * kFoldValues * kStageRow;
   T* s_prim = s_objtx + 16 * n_leaves;
   T* s_glass = s_prim + 6 * n_leaves;
   T* s_scal = s_glass + kGlass * n_glass;
-  int* st_leaf = reinterpret_cast<int*>(s_scal + kMaxScal);
-  int* st_slot = st_leaf + kThreads;
-  int* s_prog = st_slot + kThreads;
+  int* keys = reinterpret_cast<int*>(s_scal + kMaxScal);  // (kWarps, 2, 32)
+  int* s_prog = keys + kWarps * 64;
   const int tid = threadIdx.x;
   for (int k = tid; k < 16 * n_leaves; k += blockDim.x) s_objtx[k] = objtx[k];
   for (int k = tid; k < 6 * n_leaves; k += blockDim.x) s_prim[k] = prim[k];
   for (int k = tid; k < kGlass * n_glass; k += blockDim.x) s_glass[k] = glass[k];
   for (int k = tid; k < program_len; k += blockDim.x) s_prog[k] = program[k];
-  for (int k = tid; k < n_entries; k += blockDim.x) acc[k] = 0.0;
+  for (int k = tid; k < kWarps * n_entries; k += blockDim.x) acc[k] = 0.0;
   if (LOSS) {
     for (int k = tid; k < n_scal; k += blockDim.x) s_scal[k] = scal[k];
   }
   __syncthreads();
   const Scene<T> sc = make_scene(s_objtx, s_prim, s_glass, s_prog, n_leaves);
+  const int warp = tid / 32;
+  double* row = acc + warp * n_entries;  // this warp's entries
+  T* warp_stage = stage + warp * kFoldValues * kStageRow;
+  int* warp_keys = keys + warp * 64;
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + tid;
   const bool active = i < n;
@@ -214,40 +448,7 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
       step_adjoint(sc, ray_offset, world_index, threshold, apply_threshold, x, rb, bar, leaf,
                    geo, slot, gl);
     }
-    st_leaf[tid] = leaf;
-    st_slot[tid] = slot;
-    if (leaf >= 0) {
-      for (int k = 0; k < kGeo; ++k) st_geo[k * kThreads + tid] = static_cast<double>(geo[k]);
-    }
-    if (slot >= 0) {
-      for (int k = 0; k < kGlass; ++k) st_gl[k * kThreads + tid] = static_cast<double>(gl[k]);
-    }
-    // fold the staged rays into the block's entries, in ray order
-    if (__syncthreads_or(leaf >= 0)) {
-      for (int e = tid; e < n_entries; e += blockDim.x) {
-        double sum = acc[e];
-        if (e < 22 * n_leaves) {
-          const int s = e < 16 * n_leaves ? e / 16 : (e - 16 * n_leaves) / 6;
-          const int col = e < 16 * n_leaves ? e % 16 : 16 + (e - 16 * n_leaves) % 6;
-          // staged geometry: transform rows 0-2 (cols 0-11), prim (12-17);
-          // row 3 of the transform never enters the step
-          const int k = col < 12 ? col : (col < 16 ? -1 : col - 4);
-          if (k >= 0) {
-            for (int r = 0; r < kThreads; ++r) {
-              if (st_leaf[r] == s) sum += st_geo[k * kThreads + r];
-            }
-          }
-        } else {
-          const int q = e - 22 * n_leaves;
-          const int mslot = q / kGlass, col = q % kGlass;
-          for (int r = 0; r < kThreads; ++r) {
-            if (st_slot[r] == mslot) sum += st_gl[col * kThreads + r];
-          }
-        }
-        acc[e] = sum;
-      }
-    }
-    __syncthreads();
+    warp_fold(row, warp_stage, warp_keys, n_leaves, leaf, geo, slot, gl);
   }
 
   if (active) {
@@ -255,9 +456,13 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
                        bar.gen, bar.inten, bar.wav, bar.ridx, bar.rid};
     for (int c = 0; c < 13; ++c) dstate0[c * n + i] = out[c];
   }
-  // per-block partials, entry-major: partials[e * gridDim.x + block]
+  // per-block partials, entry-major: partials[e * gridDim.x + block], the
+  // warps' rows added in warp order
+  __syncthreads();
   for (int e = tid; e < n_entries; e += blockDim.x) {
-    partials[static_cast<long long>(e) * gridDim.x + blockIdx.x] = acc[e];
+    double sum = acc[e];
+    for (int w = 1; w < kWarps; ++w) sum += acc[w * n_entries + e];
+    partials[static_cast<long long>(e) * gridDim.x + blockIdx.x] = sum;
   }
 }
 
@@ -273,11 +478,9 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
+  const long long blocks = (n + kBwdThreads - 1) / kBwdThreads;
   const size_t n_entries = 22 * static_cast<size_t>(n_leaves) + kGlass * static_cast<size_t>(n_glass);
-  const size_t smem = sizeof(double) * (n_entries + (kGeo + kGlass) * kThreads) +
-                      sizeof(T) * (n_entries + kMaxScal) +
-                      sizeof(int) * (2 * kThreads + static_cast<size_t>(program_len));
+  const size_t smem = bwd_smem_bytes<T>(n_leaves, n_glass, program_len);
   auto kernel = fused_bwd_kernel<T, LOSS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -285,7 +488,7 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, s>>>(
       static_cast<const T*>(state0), n, generations, static_cast<const T*>(objtx),
       static_cast<const T*>(prim), static_cast<const T*>(glass),
       static_cast<const int*>(program), program_len, n_leaves, n_glass,
@@ -300,6 +503,12 @@ int launch(const void* state0, long long n, int generations, const void* objtx,
       static_cast<const double*>(partials), static_cast<int>(blocks), n_leaves,
       static_cast<T*>(d_objtx), static_cast<T*>(d_prim), static_cast<T*>(d_glass));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel instance of (T, LOSS), for the occupancy query
+template <typename T, bool LOSS>
+const void* occupancy_kernel() {
+  return reinterpret_cast<const void*>(fused_bwd_kernel<T, LOSS>);
 }
 
 }  // namespace
@@ -328,7 +537,28 @@ int pyrayt_fused_bwd_loss_f64(PYRAYT_BWD_ARGS) { return launch<double, true>(PYR
 
 // threads per block of the backward kernel: the wrapper sizes the
 // per-block partials (n_entries, ceil(n / threads)) from it
-int pyrayt_bwd_block_threads() { return kThreads; }
+int pyrayt_bwd_block_threads() { return kBwdThreads; }
+
+// blocks of the K3 (loss != 0) or K4 kernel an SM can hold for a scene of
+// these sizes (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative
+// CUDA error code on failure)
+int pyrayt_bwd_occupancy(int f64, int loss, int n_leaves, int n_glass, int program_len) {
+  const size_t smem = f64 ? bwd_smem_bytes<double>(n_leaves, n_glass, program_len)
+                          : bwd_smem_bytes<float>(n_leaves, n_glass, program_len);
+  auto kernel = f64 ? (loss ? occupancy_kernel<double, true>() : occupancy_kernel<double, false>())
+                    : (loss ? occupancy_kernel<float, true>() : occupancy_kernel<float, false>());
+  int blocks = 0;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBwdThreads, smem);
+  }
+  cudaGetLastError();  // leave no error for the next launch to report
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
 
 const char* pyrayt_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

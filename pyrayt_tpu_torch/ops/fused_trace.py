@@ -744,8 +744,9 @@ def build_kernels():
     """Compile every source of ``KERNEL_SOURCES`` for sm_90a into
     ``build/torch_kernels`` (once per version of the sources and the shared
     header), one nvcc process per source, all started together.  Returns
-    ``{source stem: (library path, seconds, compiler log)}``; raises if a
-    build fails."""
+    ``{source stem: (library path, seconds, compiler log)}`` (a library
+    built earlier: 0 seconds and "cached" before the log kept beside it);
+    raises if a build fails."""
     header = b"".join((_CSRC_DIR / h).read_bytes() for h in _HEADERS)
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
@@ -756,8 +757,10 @@ def build_kernels():
     built = {}
     failures = []
     for name, (lib_path, proc, tmp) in started.items():
+        log_path = lib_path.with_suffix(".log")
         if proc is None:
-            built[Path(name).stem] = (str(lib_path), 0.0, "cached")
+            log = log_path.read_text() if log_path.exists() else ""
+            built[Path(name).stem] = (str(lib_path), 0.0, "cached\n" + log)
             continue
         log, _ = proc.communicate()
         seconds = time.perf_counter() - start
@@ -765,6 +768,7 @@ def build_kernels():
             os.unlink(tmp)
             failures.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
             continue
+        log_path.write_text(log)
         os.replace(tmp, lib_path)
         built[Path(name).stem] = (str(lib_path), seconds, log)
     if failures:

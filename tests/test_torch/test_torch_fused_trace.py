@@ -206,6 +206,23 @@ def test_scene_program_layout(twins):
     assert ops == [ft.NET_PUSH, ft.NET_PUSH, ft.NET_COMBINE, ft.NET_FOLD]
 
 
+def test_device_program_is_cached_per_spec_and_device(twins):
+    """K1, K3 and K4 read the scene program from one device tensor per
+    (spec, device): a later call, or a rebuilt scene of the same structure
+    (a training step), makes no host-to-device copy."""
+    _, cond = twins.scene("condenser")
+    _, again = twins.scene("condenser")  # rebuilt: an equal, distinct spec
+    assert again.spec is not cond.spec and again.spec == cond.spec
+    cpu = torch.device("cpu")
+    program = ft.device_program(cond.spec, cpu)
+    assert ft.device_program(cond.spec, cpu) is program
+    assert ft.device_program(again.spec, cpu) is program
+    assert program.dtype == torch.int32
+    np.testing.assert_array_equal(program.numpy(), ft.scene_program(cond.spec))
+    _, union = twins.scene("union")
+    assert ft.device_program(union.spec, cpu) is not program
+
+
 def test_scene_program_capacity_is_checked(twins):
     from pyrayt_tpu_torch.scene.compile import compile_scene
     from pyrayt_tpu_torch.scene.surfaces import Cuboid, Sphere

@@ -31,7 +31,15 @@ from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.ops import fused_grad as fg
 from pyrayt_tpu_torch.ops import fused_trace as ft
 from pyrayt_tpu_torch.tracer import engine
-from torch_parity_scenes import GRAD_SCENES, TORCH_NS, follows_float64_path, grad_rays
+from torch_parity_scenes import (
+    GRAD_SCENES,
+    TORCH_NS,
+    WIDE_SCENES,
+    follows_float64_path,
+    grad_rays,
+    rehit_free32,
+    wide_rays,
+)
 
 TOL = dict(rtol=1e-8, atol=1e-10)
 _JAX_GRADS = {}
@@ -79,7 +87,7 @@ def assert_param_grads_match(twins, name, path):
 
 
 @pytest.mark.parametrize("path", ["engine", "fused_bwd_plain"])
-@pytest.mark.parametrize("name", ["condenser", "mirror", "glass_coeffs"])
+@pytest.mark.parametrize("name", ["condenser", "mirror", "glass_coeffs", "hetero_row"])
 def test_param_grads_match_jax(twins, name, path):
     grads = assert_param_grads_match(twins, name, path)
     assert np.abs(grads["world"]).max() > 1e-6  # the gradient is real
@@ -209,6 +217,141 @@ def test_imager_float32_recompute_is_ill_conditioned():
     assert max(errors["all"]) > 1e-2
     assert max(errors["follows"]) < 1e-5
     assert 0.5 <= share < 1.0
+
+
+def hetero_row_focus_shares():
+    """The share of the hetero row's rays whose FocusError state cotangents
+    (K3's plain version) agree between float32 and float64 on the same
+    float32 trace within 1e-3 of their row's largest entry (+ 1e-6), with
+    each row at its own scale and with the position and direction rows at
+    their block's scale."""
+    from pyrayt_tpu_torch import interop
+    from pyrayt_tpu_torch.analysis import metrics
+
+    build, _, _, gens, _ = GRAD_SCENES["hetero_row"]
+    with TORCH_NS.fresh_ids():
+        scene = TORCH_NS.compile(build(TORCH_NS), device="cpu", dtype=torch.float64)
+    rays = interop.rays_from_numpy(*grad_rays("hetero_row"), device="cpu", dtype=torch.float32)
+    config = TraceConfig(generation_limit=gens)
+    in32 = ft.kernel_inputs(scene.params, rays)
+    in64 = [t.double() for t in in32]
+    records, masks, _ = ft.fused_trace_plain(scene.spec, config, *in32)
+    plan = fg.loss_plan(metrics.FocusError(1.0, float(scene.spec.leaf_ids[-1])))
+    out = []
+    for inputs, rec in ((in32, records), (in64, records.double())):
+        scal = plan.row(plan.scalars(rec, masks), torch.ones((), dtype=rec.dtype))
+        out.append(fg.fused_bwd_loss_plain(scene.spec, config, *inputs, rec, masks, scal, plan)[3])
+    low, high = out[0].double(), out[1]
+    rows = high.abs().amax(dim=1, keepdim=True)
+    blocks = torch.cat((rows[:4].amax().expand(4, 1), rows[4:8].amax().expand(4, 1), rows[8:]))
+    return [float(((low - high).abs() <= 1e-3 * r + 1e-6).all(dim=0).float().mean())
+            for r in (rows, blocks)]
+
+
+def hetero_row_focus_float64_moves(n=1 << 14):
+    """The float64 FocusError cotangents (K3's plain version) of the hetero
+    row on ``n`` rays, against those of the same records with their
+    geometric rows changed by 2e-16 (relative, seeded): how many state
+    cotangent entries move by more than 1e-9 (rtol and atol) element by
+    element and at each ray's block scale, and whether the parameter
+    cotangents stay within it."""
+    from pyrayt_tpu_torch import interop
+    from pyrayt_tpu_torch.analysis import metrics
+
+    build, _, _, gens, _ = GRAD_SCENES["hetero_row"]
+    with TORCH_NS.fresh_ids():
+        scene = TORCH_NS.compile(build(TORCH_NS), device="cpu", dtype=torch.float64)
+    rays = interop.rays_from_numpy(*grad_rays("hetero_row", n=n), device="cpu",
+                                   dtype=torch.float64)
+    config = TraceConfig(generation_limit=gens)
+    inputs = ft.kernel_inputs(scene.params, rays)
+    records, masks, _ = ft.fused_trace_plain(scene.spec, config, *inputs)
+    moved = records.clone()
+    gen = torch.Generator().manual_seed(1)
+    moved[:, 6:15] *= 1 + 2e-16 * torch.randn(moved[:, 6:15].shape, generator=gen,
+                                               dtype=torch.float64)
+    plan = fg.loss_plan(metrics.FocusError(1.0, float(scene.spec.leaf_ids[-1])))
+    scal = plan.row(plan.scalars(records, masks), torch.ones((), dtype=torch.float64))
+    a, b = (fg.fused_bwd_loss_plain(scene.spec, config, *inputs, rec, masks, scal, plan)
+            for rec in (records, moved))
+    diff = (b[3] - a[3]).abs()
+    pos = a[3][:4].abs().amax(dim=0, keepdim=True).expand(4, -1)
+    dirs = a[3][4:8].abs().amax(dim=0, keepdim=True).expand(4, -1)
+    blocks = torch.cat((pos, dirs, a[3][8:].abs()))
+    params_hold = all(torch.allclose(x, y, rtol=1e-9, atol=1e-9) for x, y in zip(a[:3], b[:3]))
+    return (int((diff > 1e-9 * a[3].abs() + 1e-9).sum()), int((diff > 1e-9 * blocks + 1e-9).sum()),
+            params_hold)
+
+
+def test_hetero_row_focus_state_cotangents_are_ill_conditioned():
+    """Why the card tests hold the hetero row's float32 backward against the
+    float64 plain version with the position and direction rows at their
+    block's scale, and its float64 backward on 2**17 rays with each ray's
+    rows at that ray's block scale (test_torch_cuda.py ILL_CONDITIONED32):
+    under FocusError its rays through the lens centres reach the detector
+    almost parallel to the axis, the plan's record cotangent grows as
+    1 / tilt^2, and rounding of the large rows leaves residues in the
+    nearly cancelling rows of the same ray.  So the plain version at
+    float32 misses its own float64 state cotangents, row by row, on many
+    rays, and at float64 on 2**14 rays a 2e-16 change of the records moves
+    some entries by more than 1e-9, though none at the block scale."""
+    per_row, per_block = hetero_row_focus_shares()
+    assert per_row < 0.9
+    assert per_block >= 0.99
+    per_entry, per_ray_block, params_hold = hetero_row_focus_float64_moves()
+    assert per_entry > 0 and per_ray_block == 0 and params_hold
+
+
+def meniscus_float32_errors():
+    """max |plain float32 - plain float64| / max |float64| of the monolithic
+    wide backward's plain version (d_objtx, d_prim) on the meniscus wall,
+    both fed the float64 trace's records (float32: rounded) and seeded
+    cotangents, over the rays that ``rehit_free32`` leaves out and over the
+    rest; and the share of the rest."""
+    from pyrayt_tpu_torch import interop
+
+    build, _, _, gens = WIDE_SCENES["meniscus"]
+    with TORCH_NS.fresh_ids():
+        scene = TORCH_NS.compile(build(TORCH_NS), device="cpu", dtype=torch.float64)
+    rays = interop.rays_from_numpy(*wide_rays("meniscus"), device="cpu", dtype=torch.float64)
+    config = TraceConfig(generation_limit=gens, fixed_loop=True)
+    in64 = ft.wide_kernel_inputs(scene.spec, scene.params, rays)
+    in32 = [t.float().contiguous() if t.is_floating_point() else t for t in in64]
+    records, masks, _ = ft.fused_trace_wide_plain(scene.spec, config, *in64)
+    keep = rehit_free32(scene.spec, in64[1], in64[2], records, masks)
+    gen = torch.Generator().manual_seed(3)
+    d_records = torch.randn(records.shape, generator=gen, dtype=torch.float64) * masks[:, None]
+    d_fstate = torch.randn(in64[0].shape, generator=gen, dtype=torch.float64)
+    errors = {}
+    for label, rays_kept in (("left_out", ~keep), ("kept", keep)):
+        def cut(t):
+            return t[..., rays_kept].contiguous()
+
+        wide = fg.fused_bwd_wide_plain(scene.spec, config, cut(in64[0]), *in64[1:], cut(records),
+                                       cut(masks), d_records=cut(d_records),
+                                       d_fstate=cut(d_fstate))
+        narrow = fg.fused_bwd_wide_plain(scene.spec, config, cut(in32[0]), *in32[1:],
+                                         cut(records).float(), cut(masks),
+                                         d_records=cut(d_records).float(),
+                                         d_fstate=cut(d_fstate).float())
+        errors[label] = [float((b.double() - a).abs().max() / a.abs().max())
+                         for a, b in zip(wide[:2], narrow[:2])]
+    return errors, float(keep.float().mean())
+
+
+def test_meniscus_float32_rehits_are_ill_conditioned():
+    """Why the card tests hold the meniscus wall's float32 backward only on
+    its rehit-free rays: a ray leaving the aperture cylinder almost parallel
+    to its axis starts 1e-6 off the wall, where float32 rounding of the
+    quadratic's root behind it decides whether a recompute finds the wall
+    again 1e-6 ahead.  The plain float32 recompute on the float64 trace's
+    own records does, and misses the float64 leaf cotangents by far more
+    than the card tests' 1e-3 share, as K6 and K8 do on the float32 trace's
+    records (ROADMAP F2); on the rays ``rehit_free32`` keeps it agrees."""
+    errors, share = meniscus_float32_errors()
+    assert max(errors["left_out"]) > 1e-2
+    assert max(errors["kept"]) < 1e-5
+    assert 0.6 <= share < 0.95
 
 
 def test_loss_plans_route_and_descriptors_hash():

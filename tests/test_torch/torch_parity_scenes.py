@@ -120,6 +120,14 @@ def _imager(m):
     return [lens, stop, m.comp.baffle((25.4, 25.4)).move_x(50.0)]
 
 
+def hetero_row(m):
+    """The heterogeneous lens wall cut to ten elements (cycling BK7, SF5 and
+    SF2) plus its detector: 31 leaves and four material slots, a narrow
+    scene; under an unsorted line of rays each warp of the backward holds
+    rays on many distinct leaves and glasses."""
+    return hetero_wall(m, n_elements=10)
+
+
 # name -> (builder, rays: (kind, origin, size), n rays, generation limit,
 #          wavelength spread)
 GRAD_SCENES = {
@@ -128,15 +136,19 @@ GRAD_SCENES = {
     "glass_coeffs": (_condenser, ("cone", (-0.5, 0.0, 0.0), 10.0), 64, 6, True),
     "union_blob": (_union_blob, ("line", (-2.0, 0.0, 0.0), 0.6), 32, 5, False),
     "imager": (_imager, ("circle", (-10.0, 0.0, 0.0), 2.5), 24, 6, False),
+    "hetero_row": (hetero_row, ("line_unsorted", (-1.5, 0.0, 0.0), 12.35), 256, 5, True),
 }
 
 
-def grad_rays(name, seed=5):
+def grad_rays(name, seed=5, n=None):
     """(positions, directions, metadata) of a gradient scene, from a seed:
     a cone of half-angle ``size`` degrees, a line of half-width ``size``
-    along y (``line_back`` travels -X), or a circle of radius ``size`` in
-    the yz plane, every position jittered by 1e-4."""
-    _, (kind, origin, size), n, _, spread = GRAD_SCENES[name]
+    along y (sorted along it; ``line_back`` travels -X, ``line_unsorted``
+    keeps the draw's order, so neighbouring rays land anywhere on it), or a
+    circle of radius ``size`` in the yz plane, every position jittered by
+    1e-4; ``n`` rays (default: the scene's count)."""
+    _, (kind, origin, size), n_default, _, spread = GRAD_SCENES[name]
+    n = n or n_default
     rng = np.random.default_rng(seed)
     pos = np.zeros((4, n))
     pos[:3] = np.asarray(origin, dtype=float)[:, None] + rng.normal(0.0, 1e-4, (3, n))
@@ -153,6 +165,8 @@ def grad_rays(name, seed=5):
         pos[1] += np.sort(rng.uniform(-size, size, n))
         if kind == "line_back":
             dirs[0] = -1.0
+    elif kind == "line_unsorted":
+        pos[1] += rng.uniform(-size, size, n)
     else:  # circle
         phi = rng.uniform(0.0, 2 * np.pi, n)
         pos[1] += size * np.sin(phi)
@@ -303,6 +317,52 @@ def follows_float64_path(records32, masks32, records64, masks64):
         masks64, records64[:, 5] == records32[:, 5].to(records64.dtype), True
     )
     return (masks32 == masks64).all(dim=0) & same_surface.all(dim=0)
+
+
+def quadric_coefficients(kind, pr, o, d):
+    """(a, b, c) of a sphere's, paraboloid's or cylinder's quadratic in t
+    for local rays (o, d) (3, n), as csrc/trace_common.cuh forms them."""
+    if kind == 0:  # sphere
+        return (d * d).sum(0), 2 * (d * o).sum(0), (o * o).sum(0) - pr[0] ** 2
+    if kind == 1:  # paraboloid
+        return ((d[:2] ** 2).sum(0), 2 * (o[:2] * d[:2]).sum(0) - 4 * pr[0] * d[2],
+                (o[:2] ** 2).sum(0) - 4 * pr[0] * o[2])
+    return (d[:2] ** 2).sum(0), 2 * (d[:2] * o[:2]).sum(0), (o[:2] ** 2).sum(0) - pr[0] ** 2
+
+
+def rehit_free32(spec, obj_tx, prim, records, masks):
+    """(n,) bool: the rays whose float32 trace cannot re-hit the surface it
+    just left by rounding.  After a hit the ray starts 1e-6 off the surface
+    (the push-off), so that surface's quadratic has a root about 1e-6
+    behind it, the small root c / q (q = -(b + sign(b) sqrt(disc)) / 2).
+    The intersectors compute it as (-b +- sqrt(disc)) / 2a, whose float32
+    rounding reaches eps32 (|b| + sqrt(disc)) / 2a: large for a ray almost
+    parallel to a cylinder's axis (small a).  Where the small root is no
+    larger than that bound its sign is rounding's to decide, and a float32
+    trace may find the surface again 1e-6 ahead; such a ray is left out.
+    Computed in float64 from ``records`` (G, 15, n) and ``masks``."""
+    eps = float(np.finfo(np.float32).eps)
+    rec = records.double().cpu().numpy()
+    ran = masks.cpu().numpy()
+    obj = obj_tx.double().cpu().numpy().reshape(-1, 4, 4)
+    pr = prim.double().cpu().numpy()
+    keep = np.ones(rec.shape[2], dtype=bool)
+    for g in range(1, rec.shape[0]):
+        p, v = rec[g, 6:9], rec[g, 12:15]
+        started = ran[g - 1] & (np.abs(v).sum(0) > 0)
+        for s, kind in enumerate(spec.leaf_types):
+            if kind not in (0, 1, 4):
+                continue
+            o, d = obj[s, :3, :3] @ p + obj[s, :3, 3:], obj[s, :3, :3] @ v
+            a, b, c = quadric_coefficients(kind, pr[s], o, d)
+            disc = b * b - 4 * a * c
+            real = started & (disc >= 0) & (a > 1e-8)
+            root = np.sqrt(np.where(real, disc, 0.0))
+            q = -0.5 * (b + np.copysign(root, b))
+            small = np.abs(c / np.where(q == 0, 1.0, q))
+            bound = eps * (np.abs(b) + root) / (2 * np.where(real, a, 1.0))
+            keep &= ~(real & (small < 1e-4) & (small <= bound))
+    return torch.as_tensor(keep, device=masks.device)
 
 
 def reduce_key_sets(n, seed=0):
