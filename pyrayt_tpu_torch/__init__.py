@@ -14,6 +14,14 @@ neither ``jax`` nor ``pyrayt_tpu``.
 """
 
 from pyrayt_tpu_torch.config import TraceConfig
+from pyrayt_tpu_torch.core.homogeneous import (
+    HomogeneousCoordinate,
+    Point,
+    Ray,
+    Vector,
+    bundle_of_rays,
+    bundle_rays,
+)
 from pyrayt_tpu_torch.tracer.rayset import RaySet
 from pyrayt_tpu_torch.tracer.tracer import RayTracer, pin
 from pyrayt_tpu_torch import components, materials, utils
@@ -26,6 +34,12 @@ __all__ = [
     "RaySet",
     "pin",
     "TraceConfig",
+    "HomogeneousCoordinate",
+    "Point",
+    "Vector",
+    "Ray",
+    "bundle_of_rays",
+    "bundle_rays",
     "components",
     "materials",
     "utils",

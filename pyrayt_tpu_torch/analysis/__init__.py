@@ -1,7 +1,8 @@
-"""Analysis: differentiable metrics, gradient validation, checkpoints and
-gradient-based lens optimization (counterpart of ``pyrayt_tpu.analysis``;
-the aberration curves are not ported yet)."""
+"""Analysis: aberration curves, differentiable metrics, gradient
+validation, checkpoints and gradient-based lens optimization (counterpart
+of ``pyrayt_tpu.analysis``)."""
 
+from pyrayt_tpu_torch.analysis.aberrations import chromatic_aberration, coma, spherical_aberration
 from pyrayt_tpu_torch.analysis.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from pyrayt_tpu_torch.analysis.gradcheck import check_gradients, finite_difference_grad
 from pyrayt_tpu_torch.analysis.metrics import (
@@ -26,6 +27,9 @@ from pyrayt_tpu_torch.analysis.metrics import (
 from pyrayt_tpu_torch.analysis.optimize import build_objective, optimize
 
 __all__ = [
+    "chromatic_aberration",
+    "coma",
+    "spherical_aberration",
     "latest_step",
     "restore_checkpoint",
     "save_checkpoint",

@@ -10,4 +10,12 @@ from pyrayt_tpu_torch.core.operations import (
     smallest_positive_root,
 )
 from pyrayt_tpu_torch.core.csg import Operation, array_csg, csg_combine_with_ids
+from pyrayt_tpu_torch.core.homogeneous import (
+    HomogeneousCoordinate,
+    Point,
+    Ray,
+    Vector,
+    bundle_of_rays,
+    bundle_rays,
+)
 from pyrayt_tpu_torch.core import primitives

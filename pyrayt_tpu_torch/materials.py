@@ -93,10 +93,12 @@ class TracableMaterial(abc.ABC):
         self._base_material = base_material
 
     def shade(self, rays, normals, light_positions):
-        raise NotImplementedError(
-            "shading needs render/, which the port has not reached yet "
-            "(ROADMAP.md, modules to port: render)"
-        )
+        """Viewport RGBA (4, n) of the pixels that see this material: its
+        render material's Gooch shade (black when it has none)."""
+        from pyrayt_tpu_torch.render import gooch
+
+        base = self._base_material or gooch.BLACK
+        return base.shade(rays, normals, light_positions)
 
     @abc.abstractmethod
     def trace(self, surface, ray_set):

@@ -388,6 +388,18 @@ class TracerSurface(Intersectable, abc.ABC):
         ids = torch.full(hits.shape, self.get_id(), dtype=torch.int64, device=rays.device)
         return hits, ids
 
+    def shade(self, rays, distances, **kwargs):
+        """Viewport RGBA (4, n) of camera rays ``(2, 4, n)`` (host arrays)
+        hitting this surface at ``distances``: the material's shade at the
+        hit points and their world normals (black without a material)."""
+        from pyrayt_tpu_torch.render import gooch
+
+        rays = np.asarray(rays, dtype=float)
+        coordinates = rays[0] + np.asarray(distances, dtype=float) * rays[1]
+        normals = host(self.get_world_normals(torch.as_tensor(coordinates, dtype=torch.float64)))
+        material = self.material if self.material is not None else gooch.BLACK
+        return material.shade(np.stack((coordinates, rays[1]), axis=0), normals, **kwargs)
+
     def get_world_normals(self, positions):
         """World-space unit normals at (assumed on-surface) ``(4, n)`` or
         ``(4,)`` positions: inverse-transpose transform, w zeroed,

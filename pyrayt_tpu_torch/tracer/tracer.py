@@ -178,12 +178,51 @@ class RayTracer:
         frame = self.get_results()
         frame["source_id"] = (frame["id"] / self._rays_per_source).astype(int)
 
-    def show(self, *args, **kwargs) -> None:
-        """Plot trace results: needs render/, not ported yet."""
-        raise NotImplementedError(
-            "RayTracer.show needs render/, which the port has not reached yet "
-            "(ROADMAP.md, modules to port: render)"
-        )
+    def show(self, view="xy", axis=None, color_function=None, ray_width=0.01, **kwargs) -> None:
+        """Plot the components (``render.draw``, its nearest-hit pass on the
+        tracer's device) and the traced ray segments, projected on the
+        ``view`` plane; ``color_function`` "wavelength" or "source" colors
+        the segments."""
+        import matplotlib.pyplot as plt
+
+        from pyrayt_tpu_torch.render import renderers
+        from pyrayt_tpu_torch.utils import wavelength_to_rgb
+
+        frame = self.get_results()
+
+        color = "C0"
+        if frame is not None and color_function == "wavelength":
+            color = wavelength_to_rgb(frame["wavelength"].to_numpy())
+        elif frame is not None and color_function == "source":
+            n_colors = len(self._sources)
+            colors = wavelength_to_rgb(np.linspace(0.45, 0.65, n_colors))
+            color = np.empty((3, frame.shape[0]))
+            ids = frame["id"].to_numpy()
+            for n, this_color in enumerate(colors):
+                in_source = (ids >= n * self._rays_per_source) & (
+                    ids < (n + 1) * self._rays_per_source)
+                color = np.where(in_source, np.atleast_2d(this_color).T, color)
+            color = color.T
+
+        shaded = kwargs.pop("shaded", False)
+        show_at_end = False
+        if axis is None:
+            axis = plt.gca()
+            show_at_end = True
+
+        renderers.draw(self._components, view=view, axis=axis, shaded=shaded,
+                       device=self._device, dtype=self._dtype, **kwargs)
+
+        ax0, ax1 = ("x", "y") if view == "xy" else ("x", "z")
+        if self._simulation_complete and frame is not None:
+            u = frame[ax0 + "1"] - frame[ax0 + "0"]
+            v = frame[ax1 + "1"] - frame[ax1 + "0"]
+            axis.set_aspect("equal")
+            axis.quiver(frame[ax0 + "0"], frame[ax1 + "0"], u, v, color=color, scale=1,
+                        units="x", width=ray_width)
+
+        if show_at_end:
+            plt.show()
 
 
 class pin:

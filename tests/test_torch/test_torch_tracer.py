@@ -93,8 +93,15 @@ def test_ray_tracer_api():
     compact = records_to_dataframe(result.records, result.record_mask)
     naive = records_to_dataframe(result.records, result.record_mask, compact=False)
     np.testing.assert_array_equal(compact.to_numpy(), naive.to_numpy())
-    with pytest.raises(NotImplementedError, match="render"):
-        tracer.show()
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axis = plt.subplots()
+    tracer.show(axis=axis, resolution=32, color_function="source")
+    assert axis.images and axis.collections  # the rendered parts and the ray segments
+    plt.close(fig)
     tracer.set_config(TraceConfig(use_fused=True))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tracer.trace()
@@ -155,7 +162,8 @@ def test_pin_restores_poses():
 def test_import_does_not_load_jax():
     code = (
         "import sys, pyrayt_tpu_torch, pyrayt_tpu_torch.ops.fused_trace, "
-        "pyrayt_tpu_torch.interop\n"
+        "pyrayt_tpu_torch.interop, pyrayt_tpu_torch.render, pyrayt_tpu_torch.debug, "
+        "pyrayt_tpu_torch.analysis\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pyrayt_tpu.'))"
         " or m == 'pyrayt_tpu']\n"
         "assert not bad, bad\n"

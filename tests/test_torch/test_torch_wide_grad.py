@@ -85,3 +85,43 @@ def test_staged_grads_match_jax_on_the_hetero_wall(twins):
     _assert_close(t_grads, j_grads)
     assert t_grads["glass"].shape[0] == 4
     assert (t_grads["glass"].abs().sum(dim=1) > 0).sum() >= 3  # three glasses
+
+
+@pytest.mark.parametrize("name", ["mla5", "csg_singles"])
+def test_staged_tail_passes_rays_that_did_not_run_through(twins, name):
+    """K5's contract for the rays that did not run generation g (K2's rule,
+    ``generations_ran``): ``dcarry`` is ``carry_bar`` bit for bit and
+    ``buf`` holds the record's position and direction rows with zero hit
+    cotangents, on the plain forward's records and on random rows in place
+    of a dead ray's; and the plain forward leaves a dead ray's records and
+    mask of g zero (the dead-row contract), so those ``buf`` rows are zero."""
+    from pyrayt_tpu_torch.ops import fused_trace as ft
+
+    _, t_scene, _, t_rays, gens = twins.wide_inputs(name)
+    spec = t_scene.spec
+    config = TraceConfig(generation_limit=gens, fixed_loop=True)
+    inputs = ft.wide_kernel_inputs(spec, t_scene.params, t_rays)
+    state0, glass = inputs[0], inputs[3]
+    records, masks, _, fold5, _ = ft.fused_trace_wide_plain(spec, config, *inputs,
+                                                            save_fold=True)
+    ran = fg.generations_ran(records, masks)
+    rng = np.random.default_rng(3)
+    n = masks.shape[1]
+    dead_total = 0
+    for g in range(1, gens):
+        dead = ~ran[g]
+        assert not records[g][:, dead].any() and not masks[g][dead].any()
+        stopped = ~masks[g - 1]  # random rows there: the ray still did not run g
+        rec_random = records[g].clone()
+        rec_random[:, stopped] = torch.as_tensor(rng.standard_normal((15, int(stopped.sum()))))
+        for rec in (records[g], rec_random):
+            carry = torch.as_tensor(rng.standard_normal((11, n)))
+            d_rec = torch.as_tensor(rng.standard_normal((15, n))) * masks[g]
+            buf, dcarry, _ = fg.staged_tail(spec, config, state0, rec, masks[g], masks[g - 1],
+                                            fold5[g], glass, carry, d_rec=d_rec)
+            assert torch.equal(dcarry[:, dead], carry[:, dead])
+            assert torch.equal(buf[0:3, dead], rec[6:9, dead])
+            assert torch.equal(buf[3:6, dead], rec[12:15, dead])
+            assert not buf[6:10, dead].any()
+        dead_total += int(dead.sum())
+    assert dead_total > 0
