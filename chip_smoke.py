@@ -103,7 +103,35 @@ raises, and any failure exits non-zero:
              analyses on the CPU at float64 (float64 within RTOL64), and the
              edge and Gooch-shaded renderers (``render``, one nearest-hit
              pass of the plain engine over about 0.5 million pixel rays) on
-             the card against the CPU's float64 images.
+             the card against the CPU's float64 images;
+17. parallel — ``pyrayt_tpu_torch.parallel`` in worlds of rank processes
+             (this script with ``--rank``) that build nothing: (a) a 2-rank
+             gloo world on the one card (NCCL takes one device per rank),
+             ``sharded_trace`` of the condenser through K1 per rank, f32
+             and f64, gathered, equal bit for bit to one K1 launch over
+             every ray; (b) ``build_train_step`` with
+             ``metrics.rms_spot_radius`` through K1 + K4 per rank, f64 and
+             f32, its summed gradient against the one-process step's
+             (this process, no group) within REL64 / REL32 and two steps
+             bit-identical; (c) the 16x16 array at full width: the sharded
+             K2 trace against one K2 launch, one step through K2 + K5/K6/K7
+             and one through K2 + K8 against the one-process steps, f32;
+             (d) the tree axis: ``build_wide_sharded_trace_fn`` on the
+             16x16 array (128 trees per rank, the plain engine, f64, at
+             2**16 random rays: the plain fold's (trees x rays) arrays),
+             records bit-equal to and gradient within REL64 of the
+             one-process plain engine, and
+             ``build_surface_sharded_nearest_hit`` on a 32x32 sphere grid
+             against the one-rank fold; (e) a 1-rank NCCL world
+             (``initialize_distributed(backend="nccl")``): one condenser
+             step bit-identical to the step without a group; (f) each
+             rank's times (host clock, CUDA events): the sharded trace,
+             the step, the gather, the gradient sum and the MIN fold,
+             and K1's and K2's times on a rank's block (``kernel_times``:
+             both ranks at once, then one at a time).  Every path runs
+             with the launch counts at 0 in its rank and reads them
+             after; its kernels must launch, no other kernel and no plain
+             path may.
 
 The times of phases 5, 8 and 13-15 are one call between two CUDA events
 (the wrapper's host work before its launch inside).  A kernel's own time
@@ -111,7 +139,8 @@ is its device time, phase 1b's; the kernels line gives it as ``ms``, with
 that phase's ``event_ms`` and ``host_ms`` beside it.
 
 Phases 1-8 keep their depth; phases 9-14 run the 16x16 array at full width
-(2**20 rays) except where a phase says otherwise.
+(2**20 rays) except where a phase says otherwise; phase 17 (d) cuts the
+rays of the tree axis to 2**16.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
 CUDA device and ``nvcc``; the kernels build into ``build/torch_kernels``.
@@ -122,6 +151,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1696,6 +1726,561 @@ def render_phase(torch, np, comp, matl, ft, fresh_ids, device, phase_seconds):
     phase_seconds["render_and_aberrations"] = time.perf_counter() - phase_start
 
 
+# ---------------------------------------------------------------------------
+# 17. parallel: ranks of torch.distributed worlds on the card
+# ---------------------------------------------------------------------------
+
+# two ranks share the one card over gloo (NCCL takes one device per rank);
+# a 1-rank NCCL world exercises the NCCL path
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 420
+# (d): the plain fold's (trees x rays) arrays at 2**20 rays would be 256
+# times a ray row per array, so the tree axis runs at 2**16 rays
+TREE_RAYS = 1 << 16
+SPHERE_SIDE = 32  # (d): a 32 x 32 sphere grid, 1024 leaves
+PARALLEL_LR = 1e-2
+# the kernels a rank may launch, by the name of the kernels line
+RANK_KERNELS = ("fused_trace", "fused_bwd_loss", "fused_bwd", "fused_trace_wide", "staged_tail",
+                "staged_group", "staged_singles", "fused_bwd_wide")
+
+
+def rank_counters(ft, fg):
+    return {name: getattr(ft if hasattr(ft, name) else fg, name) for name in RANK_KERNELS}
+
+
+def random_grid_rays(np, interop, torch, n, span, device, dtype, seed=17):
+    """``n`` +X rays from x = -1 at uniform random points of a span x span
+    square (no ray meets two lenslets at one distance: at such a tie the
+    sharded combine splits the cotangent, the one-process engine does
+    not)."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((4, n))
+    pos[0], pos[3] = -1.0, 1.0
+    pos[1:3] = (rng.random((2, n)) - 0.5) * span
+    dirs = np.zeros((4, n))
+    dirs[0] = 1.0
+    meta = np.stack((np.zeros(n), np.full(n, 100.0), np.full(n, 0.633), np.ones(n),
+                     np.arange(n, dtype=float)))
+    return interop.rays_from_numpy(pos, dirs, meta, device=device, dtype=dtype)
+
+
+def sphere_grid_inputs(np, torch, side, n, device):
+    """(world (S, 4, 4), params (S, 6), rays (2, 4, n)) of a side x side
+    grid of unit spheres at x = 5 (pitch 3) and a fan of rays from the
+    origin (tests/test_parallel/test_surface_sharding.py's scene, wider)."""
+    ys, zs = np.meshgrid((np.arange(side) - (side - 1) / 2) * 3.0,
+                         (np.arange(side) - (side - 1) / 2) * 3.0)
+    world = np.tile(np.eye(4), (side * side, 1, 1))
+    world[:, 0, 3], world[:, 1, 3], world[:, 2, 3] = 5.0, ys.ravel(), zs.ravel()
+    params = np.zeros((side * side, 6))
+    params[:, 0] = 1.0
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(3, n))
+    d[0] = np.abs(d[0]) * 0.1 + 0.3
+    d /= np.linalg.norm(d, axis=0)
+    rays = np.zeros((2, 4, n))
+    rays[0, 3] = 1.0
+    rays[1, :3] = d
+    return tuple(torch.as_tensor(x, dtype=torch.float64, device=device)
+                 for x in (world, params, rays))
+
+
+def timed(torch, fn, repeats=3):
+    """(result of the last call, median host ms, median CUDA-event ms) of
+    ``repeats`` synchronized calls after one warm-up."""
+    out = fn()
+    host, events = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return out, statistics.median(host), statistics.median(events)
+
+
+def rank_ray_and_tree(workdir):
+    """One rank of phase 17's 2-rank gloo world (a)-(d), (f): returns what
+    it measured; the parent holds it against its one-process runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import pyrayt_tpu_torch as pyrayt
+    from pyrayt_tpu_torch import components as comp
+    from pyrayt_tpu_torch import interop
+    from pyrayt_tpu_torch import materials as matl
+    from pyrayt_tpu_torch.analysis import metrics
+    from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.core import primitives as prim
+    from pyrayt_tpu_torch.ops import fused_grad as fg
+    from pyrayt_tpu_torch.ops import fused_trace as ft
+    from pyrayt_tpu_torch.parallel import (
+        build_surface_sharded_nearest_hit,
+        build_train_step,
+        build_wide_sharded_trace_fn,
+        default_mesh,
+        shard_rayset,
+        sharded_trace,
+    )
+    from pyrayt_tpu_torch.parallel import surfaces
+    from pyrayt_tpu_torch.parallel.mesh import Mesh
+    from pyrayt_tpu_torch.parallel.trace import gather_result
+    from pyrayt_tpu_torch.scene import fresh_ids
+    from pyrayt_tpu_torch.scene.compile import compile_scene
+    from pyrayt_tpu_torch.tracer import engine
+
+    device = torch.device("cuda", 0)
+    mesh = default_mesh(device=device)
+    counters = rank_counters(ft, fg)
+    plain_calls = {"n": 0}
+
+    def counting(fn):
+        def wrapped(*args, **kwargs):
+            plain_calls["n"] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    # the plain paths (engine steps and the kernels' plain versions) count
+    # their calls: the sharded trace and step must make none
+    engine.generation_step = counting(engine.generation_step)
+    ft.fused_trace_plain = counting(ft.fused_trace_plain)
+    ft.fused_trace_wide_plain = counting(ft.fused_trace_wide_plain)
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+        plain_calls["n"] = 0
+
+    def read():
+        return {name: c.launches for name, c in counters.items()}, plain_calls["n"]
+
+    def rank_kernel_times(fn, names):
+        """``kernel_times`` of one kernel on this rank's block: with both
+        ranks timing at once (time-sliced on the card), then rank by rank
+        while the other waits at a barrier."""
+        dist.barrier()
+        times = {"together": kernel_times(torch, fn, names)}
+        for r in range(mesh.size):
+            dist.barrier()
+            if r == mesh.rank:
+                times["alone"] = kernel_times(torch, fn, names)
+        dist.barrier()
+        return times
+
+    def same(a, b):
+        return bool(torch.equal(a.record_mask, b.record_mask) and torch.equal(a.records, b.records)
+                    and torch.equal(a.final_rays.positions, b.final_rays.positions)
+                    and torch.equal(a.final_rays.directions, b.final_rays.directions)
+                    and int(a.generations_run) == int(b.generations_run))
+
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(),
+           "launches": {name: 0 for name in RANK_KERNELS}}
+
+    def path(label, fn):
+        """Run one path with the counts at 0; add its launches."""
+        zero()
+        result = fn()
+        torch.cuda.synchronize()
+        launched, plain = read()
+        out[label + "_launches"], out[label + "_plain_calls"] = launched, plain
+        for k, v in launched.items():
+            out["launches"][k] += v
+        return result
+
+    # (a) the condenser, ray axis, K1 per rank --------------------------------
+    config = TraceConfig(generation_limit=GENERATIONS)
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        with fresh_ids():
+            source, parts = condenser(comp, matl)
+            scene = compile_scene(parts, device=device, dtype=dtype)
+        rays = source.generate_rays(N_RAYS, device=device, dtype=dtype)
+        local = path(f"a_{tag}", lambda: sharded_trace(scene, rays, config, mesh))
+        glob = gather_result(local, mesh)
+        one = engine.trace_rays(scene, rays, config)  # one K1 launch over every ray
+        out[f"a_{tag}_equal"] = same(glob, one)
+        out[f"a_{tag}_records"] = int(one.record_mask.sum())
+        if dtype == torch.float32:
+            _, out["trace_host_ms"], out["trace_event_ms"] = timed(
+                torch, lambda: sharded_trace(scene, rays, config, mesh))
+            _, out["gather_host_ms"], out["gather_event_ms"] = timed(
+                torch, lambda: mesh.gather(local.records))
+            out["gather_bytes"] = local.records.numel() * local.records.element_size() * mesh.size
+            k1_inputs = ft.kernel_inputs(scene.params, shard_rayset(rays, mesh))
+            out["k1_rank"] = rank_kernel_times(
+                lambda: ft.fused_trace(scene.spec, config, *k1_inputs), K1_NAMES)
+            del k1_inputs
+        del local, glob, one
+        torch.cuda.empty_cache()
+
+    # (b) the condenser train step, K1 + K4 per rank --------------------------
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        with fresh_ids():
+            source, parts = condenser(comp, matl)
+            scene = compile_scene(parts, device=device, dtype=dtype)
+        local_rays = shard_rayset(source.generate_rays(N_RAYS, device=device, dtype=dtype), mesh)
+        keep, kept = grad_keeper()
+        step = build_train_step(scene, config, mesh, metrics.rms_spot_radius,
+                                learning_rate=PARALLEL_LR, param_filter=keep)
+        params, loss = path(f"b_{tag}", lambda: step(scene.params, local_rays))
+        out[f"b_{tag}"] = {"params": {k: v.cpu() for k, v in params.items()},
+                           "grads": dict(kept), "loss": float(loss)}
+        again, loss_again = step(scene.params, local_rays)
+        out[f"b_{tag}_repeat_identical"] = bool(
+            all(torch.equal(params[k], again[k]) for k in params) and float(loss) == float(
+                loss_again))
+        if dtype == torch.float32:
+            _, out["step_host_ms"], out["step_event_ms"] = timed(
+                torch, lambda: step(scene.params, local_rays))
+            grads = [p.detach() for p in scene.params.values()]
+            _, out["grad_sum_host_ms"], out["grad_sum_event_ms"] = timed(
+                torch, lambda: mesh.ordered_sum(grads))
+        del step, local_rays
+        torch.cuda.empty_cache()
+
+    # (c) the 16x16 array at full width: K2; K2 + K5/K6/K7; K2 + K8 ------------
+    span = MLA_N * MLA_PITCH * 0.95
+    with fresh_ids():
+        parts, detector, _ = mla_system(comp, pyrayt, MLA_N)
+        scene = compile_scene(parts, device=device, dtype=torch.float32)
+        det_id = float(detector.get_id())
+    rays = comp.GridOfRays(span, span).move_x(-1.0).generate_rays(N_RAYS, device=device,
+                                                                  dtype=torch.float32)
+    config = TraceConfig(generation_limit=MLA_GENERATIONS)
+    local = path("c_trace", lambda: sharded_trace(scene, rays, config, mesh))
+    one = engine.trace_rays(scene, rays, config)
+    out["c_trace_equal"] = same(gather_result(local, mesh), one)
+    out["c_trace_records"] = int(one.record_mask.sum())
+    _, out["wide_trace_host_ms"], out["wide_trace_event_ms"] = timed(
+        torch, lambda: sharded_trace(scene, rays, config, mesh))
+    del local, one
+    local_rays = shard_rayset(rays, mesh)
+    k2_inputs = ft.wide_kernel_inputs(scene.spec, scene.params, local_rays)
+    out["k2_rank"] = rank_kernel_times(
+        lambda: ft.fused_trace_wide(scene.spec, config, *k2_inputs), K2_NAMES)
+    del k2_inputs
+    for route in ("staged", "fused"):
+        cfg = TraceConfig(generation_limit=MLA_GENERATIONS,
+                          wide_grad="fused" if route == "fused" else None)
+        keep, kept = grad_keeper()
+        step = build_train_step(scene, cfg, mesh, lambda r: metrics.rms_spot_radius(r, det_id),
+                                learning_rate=PARALLEL_LR, param_filter=keep)
+        params, loss = path(f"c_{route}", lambda: step(scene.params, local_rays))
+        out[f"c_{route}"] = {"params": {k: v.cpu() for k, v in params.items()},
+                             "grads": dict(kept), "loss": float(loss)}
+        _, out[f"wide_step_{route}_host_ms"], _ = timed(
+            torch, lambda: step(scene.params, local_rays), repeats=2)
+        del step
+        torch.cuda.empty_cache()
+
+    # (d) the tree axis: 256 trees over the ranks, the plain engine, f64 -----
+    smesh = Mesh({"surfaces": mesh.size}, device)
+    with fresh_ids():
+        scene = compile_scene(mla_system(comp, pyrayt, MLA_N)[0], device=device,
+                              dtype=torch.float64)
+    rays = random_grid_rays(np, interop, torch, TREE_RAYS, span, device, torch.float64)
+    fn = build_wide_sharded_trace_fn(scene, TraceConfig(generation_limit=MLA_GENERATIONS,
+                                                        fixed_loop=True), smesh)
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(params, rays)
+    loss = metrics.rms_spot_radius(result, det_id)
+    loss.backward()
+    torch.cuda.synchronize()
+    out["tree_value_and_grad_host_ms"] = (time.perf_counter() - t0) * 1e3
+    out["d_tree"] = {"records": result.records.detach().cpu(), "mask": result.record_mask.cpu(),
+                     "loss": float(loss), **{k: v.grad.cpu() for k, v in params.items()}}
+    d = torch.rand(TREE_RAYS, dtype=torch.float64, device=device)
+    leaf = torch.randint(0, 100, (TREE_RAYS,), dtype=torch.int32, device=device)
+    _, out["min_fold_host_ms"], out["min_fold_event_ms"] = timed(
+        torch, lambda: surfaces._min_combine(smesh, d, leaf))
+    del result, loss, params, fn
+    torch.cuda.empty_cache()
+
+    world, sparams, srays = sphere_grid_inputs(np, torch, SPHERE_SIDE, TREE_RAYS, device)
+    fold = build_surface_sharded_nearest_hit(prim.SPHERE, smesh)
+    s_dist, s_leaf = fold(world, sparams, srays)
+    r_dist, r_leaf = surfaces.replicated_nearest_hit(prim.SPHERE, world, sparams, srays)
+    hit = r_leaf >= 0
+    out["d_spheres"] = {
+        "leaf_equal": bool(torch.equal(s_leaf, r_leaf)),
+        "dist_max_rel_err": float(((s_dist - r_dist).abs() / r_dist.abs())[hit].max()),
+        "miss_equal": bool(torch.equal(torch.isinf(s_dist), torch.isinf(r_dist))),
+        "hits": int(hit.sum()), "distinct_leaves": int(torch.unique(r_leaf[hit]).numel())}
+    _, out["sphere_fold_host_ms"], _ = timed(torch, lambda: fold(world, sparams, srays))
+    return out
+
+
+def rank_nccl(workdir):
+    """Phase 17 (e): one condenser train step (float64) in a 1-rank NCCL
+    world; its collectives run on NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from pyrayt_tpu_torch import components as comp
+    from pyrayt_tpu_torch import materials as matl
+    from pyrayt_tpu_torch.analysis import metrics
+    from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import fused_grad as fg
+    from pyrayt_tpu_torch.ops import fused_trace as ft
+    from pyrayt_tpu_torch.parallel import build_train_step, default_mesh, shard_rayset
+    from pyrayt_tpu_torch.scene import fresh_ids
+    from pyrayt_tpu_torch.scene.compile import compile_scene
+
+    device = torch.device("cuda", 0)
+    mesh = default_mesh(device=device)
+    counters = rank_counters(ft, fg)
+    with fresh_ids():
+        source, parts = condenser(comp, matl)
+        scene = compile_scene(parts, device=device, dtype=torch.float64)
+    rays = shard_rayset(source.generate_rays(N_RAYS, device=device, dtype=torch.float64), mesh)
+    step = build_train_step(scene, TraceConfig(generation_limit=GENERATIONS), mesh,
+                            metrics.rms_spot_radius, learning_rate=PARALLEL_LR)
+    for c in counters.values():
+        c.launches = 0
+    params, loss = step(scene.params, rays)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "size": mesh.size, "joined": mesh.joined,
+            "launches": {name: c.launches for name, c in counters.items()},
+            "params": {k: v.cpu() for k, v in params.items()}, "loss": float(loss)}
+
+
+RANK_TASKS = {"ray_and_tree": rank_ray_and_tree, "nccl": rank_nccl}
+
+
+def rank_main(argv) -> int:
+    """``chip_smoke.py --rank R --world W --workdir DIR --backend B --task
+    T``: one rank of a phase-17 world."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    for name in ("--rank", "--world"):
+        parser.add_argument(name, type=int, required=True)
+    for name in ("--workdir", "--backend", "--task"):
+        parser.add_argument(name, required=True)
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    torch.cuda.set_device(0)
+    from pyrayt_tpu_torch.parallel import initialize_distributed
+
+    store = os.path.join(args.workdir, args.task + ".store")
+    initialize_distributed(f"file://{store}", args.world, args.rank, initialization_timeout=180,
+                           backend=args.backend)
+    out = RANK_TASKS[args.task](args.workdir)
+    if "jax" in sys.modules or "pyrayt_tpu" in sys.modules:
+        raise RuntimeError("a rank imported jax or pyrayt_tpu")
+    torch.save(out, os.path.join(args.workdir, f"{args.task}.rank{args.rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(torch, task, world, backend, workdir):
+    """Start ``world`` rank processes of ``task`` and wait for them within
+    PARALLEL_TIMEOUT_S (every rank killed past it); returns each rank's
+    dict.  Any rank's failure raises with its log."""
+    procs, logs = [], []
+    for rank in range(world):
+        log_file = open(os.path.join(workdir, f"{task}.rank{rank}.log"), "w")
+        logs.append(log_file)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--rank", str(rank), "--world",
+             str(world), "--workdir", workdir, "--backend", backend, "--task", task],
+            stdout=log_file, stderr=subprocess.STDOUT, cwd=HERE))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_file in logs:
+            log_file.close()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(workdir, f"{task}.rank{rank}.log")) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 17: rank {rank} of {task!r} exited {p.returncode}:\n"
+                               + text[-4000:])
+    return [torch.load(os.path.join(workdir, f"{task}.rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def grad_keeper():
+    """A ``param_filter`` that keeps a copy of the summed gradients it is
+    given (on the host) and passes them on unchanged."""
+    kept = {}
+
+    def keep(grads):
+        kept.update({k: v.detach().cpu() for k, v in grads.items()})
+        return grads
+
+    return keep, kept
+
+
+def parallel_phase(torch, np, pyrayt, comp, matl, metrics, TraceConfig, fresh_ids, compile_scene,
+                   device, phase_seconds):
+    """Phase 17 (module docstring): returns the launches the ranks made per
+    kernel."""
+    from pyrayt_tpu_torch.parallel import build_train_step, default_mesh
+    from pyrayt_tpu_torch.tracer import engine
+
+    phase_start = time.perf_counter()
+    workdir = os.path.join(HERE, "build", "parallel_phase")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(torch, "ray_and_tree", PARALLEL_RANKS, "gloo", workdir)
+    rank_s = time.perf_counter() - phase_start
+    card = card_line()
+    for out in ranks:
+        brief = {k: v for k, v in out.items()
+                 if not isinstance(v, dict) or k.endswith("launches") or k == "d_spheres"}
+        log(f"parallel rank {out['rank']} of {out['size']} ({out['backend']}, on {card}): "
+            + json.dumps(brief))
+        assert out["backend"] == "gloo" and out["size"] == PARALLEL_RANKS
+        # (a), (c): the gathered traces equal one launch over every ray
+        for key in ("a_float32_equal", "a_float64_equal", "c_trace_equal"):
+            assert out[key], (out["rank"], key)
+        for label, kernels in (("a_float32", ("fused_trace",)), ("a_float64", ("fused_trace",)),
+                               ("b_float64", ("fused_trace", "fused_bwd")),
+                               ("b_float32", ("fused_trace", "fused_bwd")),
+                               ("c_trace", ("fused_trace_wide",)),
+                               ("c_staged", ("fused_trace_wide", "staged_tail", "staged_group",
+                                             "staged_singles")),
+                               ("c_fused", ("fused_trace_wide", "fused_bwd_wide"))):
+            launched = out[label + "_launches"]
+            assert all(launched[k] > 0 for k in kernels), (out["rank"], label, launched)
+            assert out[label + "_plain_calls"] == 0, (out["rank"], label)
+            others = set(RANK_KERNELS) - set(kernels)
+            assert all(launched[k] == 0 for k in others), (out["rank"], label, launched)
+        assert out["b_float64_repeat_identical"] and out["b_float32_repeat_identical"]
+        s = out["d_spheres"]
+        assert s["leaf_equal"] and s["miss_equal"] and s["dist_max_rel_err"] <= 1e-12, s
+        assert s["distinct_leaves"] > 100, s
+    first = ranks[0]
+    for out in ranks[1:]:  # every rank holds the same step and the same tree-axis result
+        for key in ("b_float64", "b_float32", "c_staged", "c_fused"):
+            assert out[key]["loss"] == first[key]["loss"], key
+            assert all(torch.equal(out[key]["params"][k], first[key]["params"][k])
+                       for k in first[key]["params"]), key
+        for k, v in first["d_tree"].items():
+            assert (v == out["d_tree"][k]) if isinstance(v, float) else torch.equal(
+                v, out["d_tree"][k]), k
+
+    # the parent's one-process runs, without a group ----------------------
+    mesh1 = default_mesh(device=device)
+    reports = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        with fresh_ids():
+            source, parts = condenser(comp, matl)
+            scene = compile_scene(parts, device=device, dtype=dtype)
+        rays = source.generate_rays(N_RAYS, device=device, dtype=dtype)
+        keep, kept = grad_keeper()
+        step = build_train_step(scene, TraceConfig(generation_limit=GENERATIONS), mesh1,
+                                metrics.rms_spot_radius, learning_rate=PARALLEL_LR,
+                                param_filter=keep)
+        ref, ref_loss = step(scene.params, rays)
+        report = grad_compare(torch, first[f"b_{tag}"]["grads"], kept, dtype)
+        reports[f"b_{tag}"] = {"grads": report, "loss": first[f"b_{tag}"]["loss"],
+                               "one_process_loss": float(ref_loss)}
+        assert_within(report)
+        if dtype == torch.float64:
+            condenser_ref = {k: v.cpu() for k, v in ref.items()}
+        del step, rays
+    span = MLA_N * MLA_PITCH * 0.95
+    with fresh_ids():
+        parts, detector, _ = mla_system(comp, pyrayt, MLA_N)
+        scene = compile_scene(parts, device=device, dtype=torch.float32)
+        det_id = float(detector.get_id())
+    rays = comp.GridOfRays(span, span).move_x(-1.0).generate_rays(N_RAYS, device=device,
+                                                                  dtype=torch.float32)
+    for route in ("staged", "fused"):
+        cfg = TraceConfig(generation_limit=MLA_GENERATIONS,
+                          wide_grad="fused" if route == "fused" else None)
+        keep, kept = grad_keeper()
+        step = build_train_step(scene, cfg, mesh1, lambda r: metrics.rms_spot_radius(r, det_id),
+                                learning_rate=PARALLEL_LR, param_filter=keep)
+        ref, ref_loss = step(scene.params, rays)
+        report = grad_compare(torch, first[f"c_{route}"]["grads"], kept, torch.float32)
+        reports[f"c_{route}"] = {"grads": report, "loss": first[f"c_{route}"]["loss"],
+                                 "one_process_loss": float(ref_loss)}
+        assert_within(report)
+        del step
+    del rays
+    torch.cuda.empty_cache()
+
+    with fresh_ids():
+        scene = compile_scene(mla_system(comp, pyrayt, MLA_N)[0], device=device,
+                              dtype=torch.float64)
+    from pyrayt_tpu_torch import interop
+
+    rays = random_grid_rays(np, interop, torch, TREE_RAYS, span, device, torch.float64)
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
+    result = engine.build_trace_fn(scene.spec, scene.materials, TraceConfig(
+        generation_limit=MLA_GENERATIONS, fixed_loop=True, remat=True))(params, rays)
+    loss = metrics.rms_spot_radius(result, det_id)
+    loss.backward()
+    tree = first["d_tree"]
+    tree_equal = bool(torch.equal(tree["mask"], result.record_mask.cpu())
+                      and torch.equal(tree["records"], result.records.detach().cpu()))
+    report = grad_compare(torch, {k: tree[k] for k in params},
+                          {k: v.grad.cpu() for k, v in params.items()}, torch.float64)
+    reports["d_tree"] = {"grads": report, "records_equal": tree_equal, "loss": tree["loss"],
+                         "one_process_loss": loss.item(), "records": int(result.record_mask.sum())}
+    assert tree_equal, "the tree-axis trace differs from the one-process plain engine"
+    assert_within(report)
+    del result, loss, params, rays, scene
+    torch.cuda.empty_cache()
+    log("parallel against one process (summed gradients, loss; on " + card + "): "
+        + json.dumps(reports))
+
+    # (e) a 1-rank NCCL world ----------------------------------------------
+    (nccl,) = spawn_ranks(torch, "nccl", 1, "nccl", workdir)
+    nccl_identical = all(torch.equal(nccl["params"][k], condenser_ref[k]) for k in condenser_ref)
+    log(f"parallel NCCL world: backend {nccl['backend']}, size {nccl['size']}, launches "
+        f"{json.dumps(nccl['launches'])}, loss {nccl['loss']!r} vs "
+        f"{reports['b_float64']['one_process_loss']!r}, params bit-identical to the step "
+        f"without a group: {nccl_identical}")
+    assert nccl["backend"] == "nccl" and nccl["size"] == 1 and nccl["joined"]
+    assert nccl["launches"]["fused_trace"] > 0 and nccl["launches"]["fused_bwd"] > 0
+    assert nccl_identical and nccl["loss"] == reports["b_float64"]["one_process_loss"]
+
+    # (f) times per rank ----------------------------------------------------
+    times = {f"rank{out['rank']}": {k: out[k] for k in out if k.endswith("_ms")} for out in ranks}
+    for out in ranks:
+        for key in ("k1_rank", "k2_rank"):
+            times[f"rank{out['rank']}"][key] = {
+                how: {k: t[k] for k in ("device_ms", "burst_ms", "event_ms", "host_ms")}
+                for how, t in out[key].items()}
+    log(f"parallel times (ms, median; {PARALLEL_RANKS} gloo ranks time-sliced on one card; "
+        f"the condenser gather moves {first['gather_bytes']} bytes per rank; on {card}): "
+        + json.dumps(times))
+    launches = {name: sum(out["launches"][name] for out in ranks) + nccl["launches"][name]
+                for name in RANK_KERNELS}
+    log("parallel rank launches: " + json.dumps(launches))
+    phase_seconds["parallel"] = time.perf_counter() - phase_start
+    phase_seconds["parallel_ranks"] = rank_s
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2139,6 +2724,8 @@ def main() -> int:
     row_reduce_phase(torch, np, pyrayt, comp, metrics, ft, fg, TraceConfig, fresh_ids,
                      compile_scene, device, phase_seconds)
     render_phase(torch, np, comp, matl, ft, fresh_ids, device, phase_seconds)
+    rank_launches = parallel_phase(torch, np, pyrayt, comp, matl, metrics, TraceConfig, fresh_ids,
+                                   compile_scene, device, phase_seconds)
     log("phase seconds:", json.dumps(phase_seconds))
 
     def k_err(key):
@@ -2188,6 +2775,9 @@ def main() -> int:
     for entry in kernel_line:  # the kernel's own time is its device time (phase 1b)
         t = device_times[entry["name"]]
         entry.update(ms=t["device_ms"], event_ms=t["event_ms"], host_ms=t["host_ms"])
+        # phase 17's ranks, each path's counts read from 0 in its rank
+        entry["rank_launches"] = rank_launches[entry["name"]]
+        entry["launches"] += rank_launches[entry["name"]]
     log(json.dumps({"kernels": kernel_line}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -2199,4 +2789,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if sys.argv[1:2] == ["--rank"] else main())

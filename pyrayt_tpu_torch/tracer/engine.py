@@ -33,7 +33,7 @@ on every 64th ray.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -256,7 +256,7 @@ def _reduce_tree_axis(dist, leaf):
     return dmin, torch.where(torch.isinf(dmin), -1, lmin).to(torch.int32)
 
 
-def scene_nearest_hit(spec: SceneSpec, tables, rays):
+def scene_nearest_hit(spec: SceneSpec, tables, rays, group_slots_fn=None):
     """Nearest positive hit over all components: ``(hit_distances (n,),
     hit_leaf (n,) int32)`` with ``hit_leaf = -1`` for rays that hit nothing.
 
@@ -265,6 +265,11 @@ def scene_nearest_hit(spec: SceneSpec, tables, rays):
     strict ``<``, so the first of equal candidates wins.  A wide group
     (:func:`wide_plan`) folds its per-ray nearest at its first member's
     position.
+
+    ``group_slots_fn(group_index, slot_matrix) -> (T', L) long tensor``
+    optionally restricts each wide group to a subset of its trees: the
+    surface-sharded trace (``parallel/surfaces.py``) passes each rank's
+    block and MIN-combines the partial folds.
     """
     n = rays.shape[-1]
     obj_tx = tables["obj_tx"]
@@ -282,7 +287,10 @@ def scene_nearest_hit(spec: SceneSpec, tables, rays):
     for kind, idx in order:
         if kind == "group":
             template, types_pos, slot_matrix = groups[idx]
-            slots = torch.as_tensor(slot_matrix, dtype=torch.long, device=rays.device)
+            if group_slots_fn is not None:
+                slots = group_slots_fn(idx, slot_matrix)
+            else:
+                slots = torch.as_tensor(slot_matrix, dtype=torch.long, device=rays.device)
             fold(*_reduce_tree_axis(*_wide_group_candidates(
                 template, types_pos, slots, tables["prim"], obj_tx, rays)))
             continue
@@ -457,18 +465,22 @@ def _apply_materials(
 # ---------------------------------------------------------------------------
 
 
-def generation_step(spec, materials, config, tables, state):
+def generation_step(spec, materials, config, tables, state, nearest_fn=None):
     """One PROPAGATE + INTERACT + RECORD step on masked SoA state.
 
     ``state`` is ``(rays: RaySet, alive: (n,) bool)``; returns the new
     state, the (15, n) record block and its row mask (``living``).
+    ``nearest_fn(tables, rays) -> (hit_distances, hit_leaf)`` overrides the
+    PROPAGATE search (the surface-sharded trace of ``parallel/surfaces.py``
+    injects its collective fold here).
     """
     rays_state, alive = state
     p_old = rays_state.positions
     v_old = rays_state.directions
     rays = torch.stack((p_old, v_old))
 
-    hit_distances, hit_leaf = scene_nearest_hit(spec, tables, rays)
+    nearest = nearest_fn if nearest_fn is not None else partial(scene_nearest_hit, spec)
+    hit_distances, hit_leaf = nearest(tables, rays)
     no_hit = hit_leaf < 0
 
     # advance to the hit point (no-hit rays stay put)
@@ -542,6 +554,12 @@ def build_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
     TraceResult``.  ``config.fixed_loop`` runs every generation; otherwise
     the loop stops once no ray is alive.  Differentiable by autograd;
     ``config.remat`` recomputes each generation in the backward pass."""
+    return _build_trace_fn(spec, materials, config)
+
+
+def _build_trace_fn(spec: SceneSpec, materials, config: TraceConfig, nearest_fn=None):
+    """Uncached builder; ``nearest_fn(tables, rays)`` optionally replaces
+    the PROPAGATE search (see ``parallel/surfaces.py``)."""
     generations = config.generation_limit
 
     def step(*args):
@@ -549,8 +567,9 @@ def build_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
         # recompute its intermediates there (jax.checkpoint in the JAX
         # package); without grad there is nothing to save either way
         if config.remat and torch.is_grad_enabled():
-            return checkpoint(generation_step, *args, use_reentrant=False)
-        return generation_step(*args)
+            return checkpoint(generation_step, *args, nearest_fn=nearest_fn,
+                              use_reentrant=False)
+        return generation_step(*args, nearest_fn=nearest_fn)
 
     def trace(params, initial_rays: RaySet) -> TraceResult:
         tables = scene_tables(params)

@@ -26,7 +26,8 @@ def public_modules():
 def test_the_walk_finds_the_ported_modules():
     found = set(public_modules())
     for name in ("pyrayt_tpu_torch.render.renderers", "pyrayt_tpu_torch.debug",
-                 "pyrayt_tpu_torch.analysis.aberrations", "pyrayt_tpu_torch.core.homogeneous"):
+                 "pyrayt_tpu_torch.analysis.aberrations", "pyrayt_tpu_torch.core.homogeneous",
+                 "pyrayt_tpu_torch.parallel.trace", "pyrayt_tpu_torch.parallel.surfaces"):
         assert name in found
 
 

@@ -755,3 +755,57 @@ def test_row_reduce_is_the_sum_k6_and_k8_end_with(cuda, dtype, monkeypatch):
         for a, b in zip(k, plain):
             assert_rows_close(a, b, dtype, per_ray=False)
     assert int((k6_keys >= 0).sum()) > 0 and int((k8_keys >= 0).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# parallel/: pad_rayset's dead rays through every kernel, and ranks on the card
+# ---------------------------------------------------------------------------
+
+ROUTE_KERNELS = {
+    "narrow": ("fused_trace", "fused_bwd"),
+    "staged": ("fused_trace_wide", "staged_tail", "staged_group", "staged_singles"),
+    "fused": ("fused_trace_wide", "fused_bwd_wide"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("route", sorted(ROUTE_KERNELS))
+def test_padded_rays_through_the_kernels(cuda, route, dtype):
+    """Padding rays (zero direction, w = 1, zero metadata) through K1 + K4,
+    K2 (with its cull) + K5/K6/K7 and K2 + K8: no record, zero cotangents,
+    finite gradients equal to the unpadded trace's."""
+    from torch_parallel_worlds import launch_counts, padded_ray_contract
+
+    before = launch_counts()
+    out = padded_ray_contract(route, cuda, dtype)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    assert all(launched[k] > 0 for k in ROUTE_KERNELS[route]), launched
+    assert out["n_padded"] > 0 and out["valid_masks"] > 0
+    assert not out["pad_masks"].any() and torch.all(out["pad_records"] == 0)
+    assert torch.all(out["pad_d_positions"] == 0) and torch.all(out["pad_d_directions"] == 0)
+    tol = TOL64 if dtype == torch.float64 else dict(rtol=1e-5, atol=1e-6)
+    for key, grad in out["grads"].items():
+        assert torch.isfinite(grad).all(), key
+        torch.testing.assert_close(grad, out["unpadded_grads"][key], **tol)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_trace_like_one_launch(cuda, tmp_path):
+    """A 2-rank gloo world on one card: each rank's K1 and K2 trace of its
+    block, gathered, equals one launch over every ray, bit for bit."""
+    from torch_parallel_worlds import World
+    from torch_parity_scenes import grid_rays
+
+    ft.build_kernels()  # once here: the ranks load the libraries
+    inputs = {"narrow": dict(zip(("pos", "dirs", "meta"), numpy_rays((-0.5, 0.0, 0.0), 10.0,
+                                                                     4095))),
+              "wide": dict(zip(("pos", "dirs", "meta"), grid_rays(4.5, 4.5, -1.0, 4095)))}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    ranks = World("card_trace", 2, tmp_path, backend="gloo", device="cuda").wait()
+    for out in ranks:
+        for key, case in out.items():
+            kernel = "fused_trace" if key.startswith("narrow") else "fused_trace_wide"
+            assert case["launched"][kernel] == 1, (key, case["launched"])
+            assert case["equal"] and case["records"] > 0, key
