@@ -34,7 +34,12 @@ raises, and any failure exits non-zero:
              Adam steps of ``optimize`` on the singlet of
              tests/test_analysis/test_optimize.py at 2**20 rays, float32,
              through K1 + K3; then 5 steps with a generic loss through
-             K1 + K4;
+             K1 + K4; the step's breakdown (``rebuild_ms``, ``value_ms``,
+             ``value_and_grad_ms``, ms per step, host clock) and the traced
+             rebuild on the card against the CPU's at float64 (params and
+             theta-gradient within REBUILD_RTOL) with its aten ops, forward
+             and backward, within REBUILD_OPS_PER_LEAF per leaf plus
+             REBUILD_OPS_BASE (``rebuild_check``);
 8. backward times — K3, K4 and their plain versions on the condenser and
              on the 31-leaf hetero row (10 elements of the lens wall, 4
              material slots, 2**20 rays on an unsorted line across them, 5
@@ -54,11 +59,17 @@ raises, and any failure exits non-zero:
              (trees, rays) arrays are 256 times a ray row): RmsSpotRadius
              through K5's loss mode, the example's lenslet blur through its
              generic mode, float64 and float32, two launches bit-identical,
-             and d blur / d r through ``build_objective``;
+             and d blur / d r through ``build_objective``; the plain engine
+             held to the kernels' rule at an exact tie between two trees
+             (all to the first tree; it splits), its tied rays counted
+             (``tree_ties``);
 12. wide training — ``optimize`` of the shared lenslet radius from 2.3
              (30 steps) and of 64 radii plus the detector plane (30 steps,
              seed 3) on the 8x8 array at 2**18 rays, then 3 shared-radius
-             steps on the 16x16 array at 2**20 rays, float32;
+             steps on the 16x16 array at 2**20 rays, float32; each
+             objective's step breakdown as in phase 7, and ``rebuild_check``
+             on the 8x8 (shared; 64 radii and the detector) and the 16x16
+             (shared; 256 radii);
 13. wide staged kernels and times — K5, K6 and K7 each against its
              plain version, launch by launch, on the inputs the staged
              backward gives them over a K2 trace of the 16x16 array at
@@ -120,7 +131,8 @@ raises, and any failure exits non-zero:
              16x16 array (128 trees per rank, the plain engine, f64, at
              2**16 random rays: the plain fold's (trees x rays) arrays),
              records bit-equal to and gradient within REL64 of the
-             one-process plain engine, and
+             one-process plain engine (both split a tie between two trees;
+             the tied rays counted), and
              ``build_surface_sharded_nearest_hit`` on a 32x32 sphere grid
              against the one-rank fold; (e) a 1-rank NCCL world
              (``initialize_distributed(backend="nccl")``): one condenser
@@ -500,13 +512,15 @@ def cull_counts(torch, ft, spec, inputs, records, masks, fg, stride):
 
 
 def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective, optimize,
-                    device, train_config, reset, launches, label):
+                    device, train_config, reset, launches, label, compile_scene=None):
     """The 8x8 array's training witnesses at 2**18 rays, float32 (the
     example's two ``--optimize`` runs): the shared lenslet radius from 2.3
     (30 steps), then 64 radii plus the detector plane (30 steps, seed 3),
     under ``train_config``.  Each run's launch counts are zeroed just before
     it and read just after.  Returns the final radius, the per-lenslet mean
-    |r - nominal| before and after, the host ms per step and the counts."""
+    |r - nominal| before and after, the host ms per step and the counts;
+    given ``compile_scene``, also each objective's ``step_breakdown`` at its
+    starting theta."""
     span8 = TRAIN_N * MLA_PITCH * 0.95
     rays8 = comp.GridOfRays(span8, span8).move_x(-1.0).generate_rays(
         TRAIN_RAYS, device=device, dtype=torch.float32)
@@ -526,6 +540,11 @@ def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective
     out["shared_ms_per_step"] = (time.perf_counter() - start) / WIDE_TRAIN_STEPS * 1e3
     out["launches"]["shared"] = launches()
     out["r"] = float(theta["r"])
+    if compile_scene is not None:
+        out["shared_breakdown"] = step_breakdown(
+            torch, compile_scene, fresh_ids,
+            lambda th: mla_system(comp, pyrayt, TRAIN_N, th["r"])[0], objective,
+            {"r": torch.tensor(r_start, device=device, requires_grad=True)}, device, 5)
     log(f"wide training ({label}), shared radius ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
         f"{WIDE_TRAIN_STEPS} steps): r {r_start:.3f} -> {out['r']:.4f} mm (nominal {MLA_R}); "
         f"blur {history[0]:.5f} -> {min(history):.5f} mm^2; {out['shared_ms_per_step']:.1f} "
@@ -536,9 +555,7 @@ def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective
     focus8 = pyrayt.lensmakers_equation(MLA_R, float("inf"), 1.5, MLA_THICKNESS)
 
     def build_free(th):
-        lenslets = comp.microlens_array(th["radii"], MLA_THICKNESS, TRAIN_N, TRAIN_N, MLA_PITCH)
-        size = 2.0 * TRAIN_N * MLA_PITCH
-        return lenslets + [comp.baffle((size, size)).move_x(th["det_x"])]
+        return build_free8(comp, th)
 
     theta0 = {"radii": torch.tensor(radii0, dtype=torch.float32, device=device),
               "det_x": torch.tensor(focus8 * 1.05, dtype=torch.float32, device=device)}
@@ -552,6 +569,10 @@ def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective
     torch.cuda.synchronize()
     out["free_ms_per_step"] = (time.perf_counter() - start) / WIDE_TRAIN_STEPS * 1e3
     out["launches"]["per_lenslet"] = launches()
+    if compile_scene is not None:
+        out["free_breakdown"] = step_breakdown(
+            torch, compile_scene, fresh_ids, lambda th: build_free(th), objective,
+            {k: v.clone().requires_grad_(True) for k, v in theta0.items()}, device, 5)
     out["err0"] = float(np.abs(radii0 - MLA_R).mean())
     out["err1"] = float((theta["radii"].double() - MLA_R).abs().mean())
     log(f"wide training ({label}), per lenslet ({TRAIN_N}x{TRAIN_N}, {TRAIN_RAYS} rays, "
@@ -561,6 +582,145 @@ def train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective
         f"(nominal {focus8:.3f}); {out['free_ms_per_step']:.1f} ms/step (host clock); launches "
         f"{json.dumps(out['launches']['per_lenslet'])}")
     return out
+
+
+# the traced rebuild's size: at most this many non-view aten ops per leaf
+# plus a constant, in its forward and in its backward (test_torch_rebuild.py)
+REBUILD_OPS_PER_LEAF, REBUILD_OPS_BASE = 4, 200
+# the card's traced rebuild against the CPU's, both float64: params and the
+# theta-gradient within this share of their largest magnitude
+REBUILD_RTOL = 1e-12
+
+
+def aten_counter():
+    """A ``TorchDispatchMode`` that counts the non-view aten ops dispatched
+    inside it (``.ops``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class AtenCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    return AtenCount()
+
+
+def rebuild_check(torch, np, compile_scene, fresh_ids, build, theta0, device, label):
+    """The traced rebuild ``build(theta)`` on the card against the same on
+    the CPU, both float64: the params, and the gradient of a seeded random
+    projection of ``world`` and ``prim`` with respect to theta, within
+    REBUILD_RTOL of their largest magnitude; on the card the aten ops of the
+    rebuild and of its backward within REBUILD_OPS_PER_LEAF per leaf plus
+    REBUILD_OPS_BASE.  Returns the report (it asserts)."""
+    rng = np.random.default_rng(17)
+    cotangents, runs = None, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        theta = {k: torch.tensor(np.asarray(v, dtype=float), dtype=torch.float64, device=dev,
+                                 requires_grad=True) for k, v in theta0.items()}
+        forward, backward = aten_counter(), aten_counter()
+        with forward, fresh_ids():
+            scene = compile_scene(build(theta), device=dev, dtype=torch.float64)
+        if cotangents is None:
+            cotangents = [rng.standard_normal(tuple(scene.params[k].shape))
+                          for k in ("world", "prim")]
+        with backward:
+            grads = torch.autograd.grad(
+                [scene.params["world"], scene.params["prim"]], list(theta.values()),
+                [torch.as_tensor(c, device=dev) for c in cotangents])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[where] = {"params": {k: scene.params[k].detach().cpu() for k in ("world", "prim")},
+                       "grads": {k: g.cpu() for k, g in zip(theta, grads)},
+                       "ops": forward.ops, "backward_ops": backward.ops,
+                       "leaves": scene.spec.n_leaves}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    card, cpu = runs["card"], runs["cpu"]
+    bound = REBUILD_OPS_PER_LEAF * card["leaves"] + REBUILD_OPS_BASE
+    report = {"leaves": card["leaves"], "ops_bound": bound,
+              "ops": {"card": card["ops"], "cpu": cpu["ops"]},
+              "backward_ops": {"card": card["backward_ops"], "cpu": cpu["backward_ops"]},
+              "params_rel_err": {k: rel(card["params"][k], cpu["params"][k])
+                                 for k in card["params"]},
+              "grad_rel_err": {k: rel(card["grads"][k], cpu["grads"][k]) for k in card["grads"]}}
+    log(f"traced rebuild {label}, card against CPU, float64:", json.dumps(report))
+    assert all(e <= REBUILD_RTOL for e in report["params_rel_err"].values()), report
+    assert all(e <= REBUILD_RTOL for e in report["grad_rel_err"].values()), report
+    assert all(float(g.abs().max()) > 0 for g in card["grads"].values()), report
+    assert card["ops"] <= bound and card["backward_ops"] <= bound, report
+    return report
+
+
+def step_breakdown(torch, compile_scene, fresh_ids, build, objective, theta, device, repeats=10):
+    """Host-clock ms (synchronized) of the float32 rebuild alone, the
+    objective's value, and its value and gradient, at ``theta`` (tensors
+    that require grad)."""
+
+    def rebuild():
+        with fresh_ids():
+            compile_scene(build(theta), device=device, dtype=torch.float32)
+
+    def value_and_grad():
+        return torch.autograd.grad(objective(theta), list(theta.values()))
+
+    return {"rebuild_ms": host_ms(torch, rebuild, repeats),
+            "value_ms": host_ms(torch, lambda: objective(theta), repeats),
+            "value_and_grad_ms": host_ms(torch, value_and_grad, repeats)}
+
+
+class tree_ties:
+    """Inside it, the plain engine's tree-axis reduce (``engine.
+    _reduce_tree_axis``) records the rays whose nearest distance two or
+    more trees of a wide group share (``count()``: over every call, which
+    see the same rays each generation); with ``first_tree`` it also gives
+    such a tie's whole distance cotangent to the first tree, the rule of
+    the wide kernels and their plain versions (the plain engine splits it,
+    as the JAX engine does)."""
+
+    def __init__(self, torch, engine, first_tree=False):
+        self.torch, self.engine, self.first_tree = torch, engine, first_tree
+        self.tied = []
+
+    def __enter__(self):
+        torch, original = self.torch, self.engine._reduce_tree_axis
+        self.original = original
+
+        def reduce(dist, leaf):
+            d = dist.detach()
+            dmin = d.amin(dim=0)
+            self.tied.append(((d == dmin).sum(dim=0) > 1) & torch.isfinite(dmin))
+            if not self.first_tree:
+                return original(dist, leaf)
+            win = torch.argmin(dist, dim=0)
+            dmin = torch.gather(dist, 0, win[None])[0]
+            lmin = torch.gather(leaf, 0, win[None])[0]
+            return dmin, torch.where(torch.isinf(dmin), -1, lmin).to(torch.int32)
+
+        self.engine._reduce_tree_axis = reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._reduce_tree_axis = self.original
+
+    def count(self):
+        if not self.tied:
+            return 0
+        return int(self.torch.stack(self.tied).any(dim=0).sum())
+
+
+def build_free8(comp, th):
+    """The 8x8 training witness's scene: 64 lenslet radii and the detector
+    plane free."""
+    lenslets = comp.microlens_array(th["radii"], MLA_THICKNESS, TRAIN_N, TRAIN_N, MLA_PITCH)
+    size = 2.0 * TRAIN_N * MLA_PITCH
+    return lenslets + [comp.baffle((size, size)).move_x(th["det_x"])]
 
 
 def fold_ops(torch, ft, fg, spec, inputs, records, masks):
@@ -1086,11 +1246,16 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
             k_value, k_grads = param_grads(scene, kernel_value)
             ran = {k: launches()[k] - before[k] for k in before}
             assert all(ran.values()), (loss_name, ran)
-            p_value, p_grads = param_grads(scene, plain_value)
+            # the kernels give an exact tie between two trees to the first
+            # one: the plain engine is held to that rule here, its tied rays
+            # counted
+            with tree_ties(torch, engine, first_tree=True) as ties:
+                p_value, p_grads = param_grads(scene, plain_value)
             report = grad_compare(torch, k_grads, p_grads, dtype)
             grad_reports[f"{loss_name}_{tag}"] = report
-            log(f"wide gradient {loss_name} {tag} ({rays.n_rays} rays): value {k_value!r} vs plain "
-                f"{p_value!r}; launches {json.dumps(ran)}; " + json.dumps(report))
+            log(f"wide gradient {loss_name} {tag} ({rays.n_rays} rays, {ties.count()} of them "
+                f"tied between two trees): value {k_value!r} vs plain {p_value!r}; launches "
+                f"{json.dumps(ran)}; " + json.dumps(report))
             assert_within(report)
             _, again = param_grads(scene, kernel_value)
             identical = all(torch.equal(again[k], k_grads[k]) for k in names)
@@ -1109,15 +1274,19 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
             TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True, use_fused=use_fused))
         r = torch.tensor(MLA_R, dtype=torch.float64, device=device, requires_grad=True)
         before = launches()
-        value = objective(r)
-        (r_grads[label],) = torch.autograd.grad(value, r)
+        with tree_ties(torch, engine, first_tree=True) as ties:
+            value = objective(r)
+            (r_grads[label],) = torch.autograd.grad(value, r)
         ran = {k: launches()[k] - before[k] for k in before}
+        if use_fused is False:
+            r_ties = ties.count()
         assert all(ran.values()) if use_fused is None else not any(ran.values()), (label, ran)
         log(f"wide d blur / d r ({label}): blur {float(value.detach())!r} mm^2, "
             f"d/dr {float(r_grads[label])!r}; launches {json.dumps(ran)}")
     report = grad_compare(torch, {"r": r_grads["kernels"]}, {"r": r_grads["plain"]}, torch.float64)
     grad_reports["d_blur_d_r_float64"] = report
-    log("wide d blur / d r, kernels against plain: " + json.dumps(report))
+    log(f"wide d blur / d r, kernels against plain ({r_ties} rays tied between two trees): "
+        + json.dumps(report))
     assert_within(report)
     del rays
     torch.cuda.empty_cache()
@@ -1127,7 +1296,24 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     phase_start = time.perf_counter()
     train_config = TraceConfig(generation_limit=MLA_GENERATIONS, fixed_loop=True)
     witness = train_witnesses(torch, np, pyrayt, comp, metrics, fresh_ids, build_objective,
-                              optimize, device, train_config, reset, launches, "staged")
+                              optimize, device, train_config, reset, launches, "staged",
+                              compile_scene=compile_scene)
+    for key in ("shared", "free"):
+        log(f"wide training step breakdown ({TRAIN_N}x{TRAIN_N}, {key}, float32, {TRAIN_RAYS} "
+            f"rays; ms per step {witness[key + '_ms_per_step']:.2f}):",
+            json.dumps(witness[key + "_breakdown"]))
+    for n, label, theta0 in (
+            (TRAIN_N, "shared radius", {"r": MLA_R * 1.15}),
+            (TRAIN_N, f"{TRAIN_N * TRAIN_N} radii and the detector",
+             {"radii": MLA_R * (1.0 + 0.15 * np.random.default_rng(3).standard_normal(
+                 TRAIN_N * TRAIN_N)), "det_x": 4.2}),
+            (MLA_N, "shared radius", {"r": MLA_R * 1.15}),
+            (MLA_N, f"{MLA_N * MLA_N} radii",
+             {"r": MLA_R * (1.0 + 0.15 * np.random.default_rng(4).standard_normal(MLA_N**2))})):
+        build = ((lambda th: build_free8(comp, th)) if "det_x" in theta0
+                 else (lambda th, n=n: mla_system(comp, pyrayt, n, th["r"])[0]))
+        rebuild_check(torch, np, compile_scene, fresh_ids, build, theta0, device,
+                      f"{n}x{n} {label}")
     assert abs(witness["r"] - MLA_R) <= 0.1, witness
     assert witness["err1"] < 0.12 and witness["err1"] < witness["err0"], witness
     assert all(witness["launches"]["shared"].values()), witness
@@ -1148,17 +1334,15 @@ def wide_phases(torch, np, pyrayt, comp, matl, metrics, ft, fg, engine, TraceCon
     torch.cuda.synchronize()
     full_step_ms = (time.perf_counter() - start) / FULL_STEPS * 1e3
     train_launches = launches()
-    r_t = torch.tensor(r_start, device=device, requires_grad=True)
-
-    def rebuild():
-        with fresh_ids():
-            compile_scene(mla_system(comp, pyrayt, MLA_N, r_t)[0], device=device,
-                          dtype=torch.float32)
-
-    rebuild_ms = host_ms(torch, rebuild, repeats=3)
+    full_breakdown = step_breakdown(
+        torch, compile_scene, fresh_ids, lambda th: mla_system(comp, pyrayt, MLA_N, th["r"])[0],
+        objective, {"r": torch.tensor(r_start, device=device, requires_grad=True)}, device, 3)
     log(f"wide training at full width ({MLA_N}x{MLA_N}, {N_RAYS} rays, {FULL_STEPS} steps): "
-        f"{full_step_ms:.1f} ms/step (host clock), rebuild {rebuild_ms:.1f} ms; launches per step "
+        f"{full_step_ms:.1f} ms/step (host clock), rebuild {full_breakdown['rebuild_ms']:.1f} ms; "
+        f"launches per step "
         f"{json.dumps({k: v / FULL_STEPS for k, v in train_launches.items()})}; blur {history}")
+    log(f"wide training step breakdown ({MLA_N}x{MLA_N}, shared, float32, {N_RAYS} rays; ms per "
+        f"step {full_step_ms:.2f}):", json.dumps(full_breakdown))
     assert all(v >= FULL_STEPS for v in train_launches.values()), train_launches
     phase_seconds["wide_training"] = time.perf_counter() - phase_start
 
@@ -2234,17 +2418,21 @@ def parallel_phase(torch, np, pyrayt, comp, matl, metrics, TraceConfig, fresh_id
 
     rays = random_grid_rays(np, interop, torch, TREE_RAYS, span, device, torch.float64)
     params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
-    result = engine.build_trace_fn(scene.spec, scene.materials, TraceConfig(
-        generation_limit=MLA_GENERATIONS, fixed_loop=True, remat=True))(params, rays)
-    loss = metrics.rms_spot_radius(result, det_id)
-    loss.backward()
+    # both split an exact tie between two trees (the MIN combine between
+    # ranks, amin within one): the tied rays are counted, not held apart
+    with tree_ties(torch, engine) as ties:
+        result = engine.build_trace_fn(scene.spec, scene.materials, TraceConfig(
+            generation_limit=MLA_GENERATIONS, fixed_loop=True, remat=True))(params, rays)
+        loss = metrics.rms_spot_radius(result, det_id)
+        loss.backward()
     tree = first["d_tree"]
     tree_equal = bool(torch.equal(tree["mask"], result.record_mask.cpu())
                       and torch.equal(tree["records"], result.records.detach().cpu()))
     report = grad_compare(torch, {k: tree[k] for k in params},
                           {k: v.grad.cpu() for k, v in params.items()}, torch.float64)
     reports["d_tree"] = {"grads": report, "records_equal": tree_equal, "loss": tree["loss"],
-                         "one_process_loss": loss.item(), "records": int(result.record_mask.sum())}
+                         "one_process_loss": loss.item(), "records": int(result.record_mask.sum()),
+                         "tied_rays": ties.count()}
     assert tree_equal, "the tree-axis trace differs from the one-process plain engine"
     assert_within(report)
     del result, loss, params, rays, scene
@@ -2618,7 +2806,10 @@ def main() -> int:
     breakdown["profiled_wall_ms_per_step"] = wall_us / PROFILED_STEPS / 1e3
     breakdown["top_device_kernels_ms_per_step"] = {
         name[:60]: us / PROFILED_STEPS / 1e3 for name, us in kernels[:6]}
+    breakdown["ms_per_step"] = train_s / TRAIN_STEPS * 1e3
     log("training step breakdown (float32, 2**20 rays):", json.dumps(breakdown))
+    rebuild_check(torch, np, compile_scene, fresh_ids, lambda th: build_singlet(th, comp, matl),
+                  {"r1": 2.0}, device, "singlet")
     phase_seconds["training"] = time.perf_counter() - phase_start
 
     # 8. backward times on the condenser and the hetero row, float32 -------

@@ -196,17 +196,24 @@ def biconvex_lens(r1: float, r2: float, thickness: float, **kwargs):
     return csg.intersect(csg.intersect(left_side, right_side), aperture_shape)
 
 
-@_lens
-def plano_convex_lens(r: float, thickness: float, **kwargs):
-    """Plano-convex lens: planar surface faces -X, sphere faces +X."""
-    aperture_shape = _create_aperture(kwargs.get("aperture"), thickness)
-    right_side = Sphere(r).move_z(-(r - thickness / 2))
+def _plano_convex(r, thickness, sphere_z, aperture, material):
+    """The plano-convex solid before the optical-axis rotations, its sphere
+    at ``z = sphere_z``."""
+    aperture_shape = _create_aperture(aperture, thickness)
+    right_side = Sphere(r).move_z(sphere_z)
 
-    material = kwargs.get("material")
     aperture_shape.material = material
     right_side.material = material
 
     return csg.intersect(right_side, aperture_shape)
+
+
+@_lens
+def plano_convex_lens(r: float, thickness: float, **kwargs):
+    """Plano-convex lens: planar surface faces -X, sphere faces +X."""
+    return _plano_convex(
+        r, thickness, -(r - thickness / 2), kwargs.get("aperture"), kwargs.get("material")
+    )
 
 
 @_mirror
@@ -369,22 +376,29 @@ def microlens_array(
     if aperture is None:
         aperture = pitch
 
-    def _r_of(i):
-        if np.ndim(r) > 0:
-            if len(r) != ny * nx:
-                raise ValueError(f"per-lenslet radii: expected {ny * nx} values, got {len(r)}")
-            return r[i]
-        return r
+    per_lenslet = np.ndim(r) > 0
+    if per_lenslet and len(r) != ny * nx:
+        raise ValueError(f"per-lenslet radii: expected {ny * nx} values, got {len(r)}")
+    # the spheres' offsets -(r - thickness / 2) (plano_convex_lens), for a
+    # traced tensor of radii in one op: a lenslet takes views of it
+    radii = plain(r)
+    sphere_z = -(radii - thickness / 2) if isinstance(radii, torch.Tensor) else None
 
     lenslets = []
     for iy in range(ny):
         for iz in range(nx):
             y = (iy - (ny - 1) / 2.0) * pitch
             z = (iz - (nx - 1) / 2.0) * pitch
+            i = iy * nx + iz
+            r_i = r[i] if per_lenslet else r
+            if sphere_z is None:
+                z_i = -(r_i - thickness / 2)
+            else:
+                z_i = sphere_z[i] if per_lenslet else sphere_z
             lenslets.append(
-                plano_convex_lens(
-                    _r_of(iy * nx + iz), thickness, aperture=aperture, material=material
-                )
+                _plano_convex(r_i, thickness, z_i, aperture, material)
+                .rotate_y(90)
+                .rotate_x(90)
                 .move_y(y)
                 .move_z(z)
             )

@@ -16,11 +16,15 @@ import torch
 
 __all__ = ["is_traced", "xp_for", "plain", "as_tensor_like", "first_tensor", "host"]
 
+_NUMBERS = (float, int)  # the builders' usual arguments: a fast path
+
 
 def is_traced(*values) -> bool:
     """True if any value (or element of a tuple/list) is a torch tensor
     that requires grad."""
     for v in values:
+        if type(v) in _NUMBERS:
+            continue
         if isinstance(v, torch.Tensor) and v.requires_grad:
             return True
         if isinstance(v, (tuple, list)) and is_traced(*v):
@@ -37,6 +41,8 @@ def xp_for(*values):
 def plain(value):
     """A value as the NumPy path reads it: tensors that do not require
     grad become floats / arrays; everything else is returned as is."""
+    if type(value) in _NUMBERS:
+        return value
     if isinstance(value, torch.Tensor) and not value.requires_grad:
         value = value.detach().cpu().numpy()
         return float(value) if value.ndim == 0 else value

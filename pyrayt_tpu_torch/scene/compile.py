@@ -24,6 +24,7 @@ from pyrayt_tpu_torch.config import default_device
 from pyrayt_tpu_torch.core import primitives as prim_mod
 from pyrayt_tpu_torch.core.csg import Operation
 from pyrayt_tpu_torch.core.intervals import LEAF
+from pyrayt_tpu_torch.scene._factors import compose
 from pyrayt_tpu_torch.scene.csg import CSGSurface
 from pyrayt_tpu_torch.scene.objects import ObjectGroup, TracerSurface
 
@@ -98,6 +99,32 @@ def _stack(entries, empty_shape, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.stack(entries), dtype=dtype, device=device)
 
 
+def _leaf_tables(chains, prims, dtype, device):
+    """``world`` (S, 4, 4) and ``prim`` (S, 6) from each leaf's transform
+    chain and primitive entries (objects.py): the plain rows stack on NumPy
+    as before, and the traced leaves come from one batched composition
+    (scene/_factors.py), placed in slot order with one index op each."""
+    world = _stack([m0 for m0, factors in chains], (0, 4, 4), dtype, device)
+    prim = _stack([row for row, _ in prims], (0, prim_mod.PARAM_WIDTH), dtype, device)
+    traced_world = [slot for slot, (_, factors) in enumerate(chains) if factors]
+    traced_prim = [slot for slot, (_, entries) in enumerate(prims) if entries]
+    if not traced_world and not traced_prim:
+        return world, prim
+    rows_world, rows_prim = compose(
+        [chains[slot] for slot in traced_world], [prims[slot] for slot in traced_prim]
+    )
+    slots = torch.as_tensor(np.asarray(traced_world + traced_prim, dtype=np.int64), device=device)
+    if traced_world:
+        world = world.index_copy(
+            0, slots[: len(traced_world)], rows_world.to(dtype=dtype, device=device)
+        )
+    if traced_prim:
+        prim = prim.index_copy(
+            0, slots[len(traced_world):], rows_prim.to(dtype=dtype, device=device)
+        )
+    return world, prim
+
+
 def _flatten_components(components):
     flat = []
     for comp in components:
@@ -164,8 +191,8 @@ def compile_scene(
             leaf_ids.append(obj.get_id())
             leaf_normal_scale.append(obj._normal_scale)
             leaf_mat_slot.append(_material_slot(obj.material))
-            worlds.append(obj.get_world_transform())
-            prims.append(obj.prim_params)
+            worlds.append(obj._world_chain())
+            prims.append(obj._prim_entries())
             return (LEAF, slot)
         raise TypeError(f"cannot compile component of type {type(obj)!r}")
 
@@ -181,9 +208,10 @@ def compile_scene(
         trees=trees,
     )
     glass_rows = [m.glass_coeffs() for m in materials]
+    world, prim = _leaf_tables(worlds, prims, dtype, device)
     params = {
-        "world": _stack(worlds, (0, 4, 4), dtype, device),
-        "prim": _stack(prims, (0, prim_mod.PARAM_WIDTH), dtype, device),
+        "world": world,
+        "prim": prim,
         "glass": _stack(glass_rows, (0, matl.N_GLASS_COEFFS), dtype, device),
     }
     return CompiledScene(spec=spec, params=params, materials=tuple(materials))

@@ -46,7 +46,6 @@ class CSGSurface(Intersectable):
     ):
         super().__init__(*args, **kwargs)
         self._operation = operation
-        self.var_watchlist.append(self._update_bounding_box)
 
         self._l_child = l_child
         self._l_child.attach_to(self)
@@ -57,18 +56,18 @@ class CSGSurface(Intersectable):
         if self._operation == Operation.DIFFERENCE:
             self._r_child.invert_normals()
 
-        self._update_bounding_box()
-
-    def _update_bounding_box(self):
-        if self._operation != Operation.DIFFERENCE:
-            new_spans = _array_csg_spans_np(
-                np.asarray(self._l_child.bounding_box.T),
-                np.asarray(self._r_child.bounding_box.T),
-                self._operation,
-            )
-            self._aobb_spans = new_spans[:2].T
-        else:
-            self._aobb_spans = self._l_child.bounding_box
+    @property
+    def _aobb_spans(self):
+        """The children's boxes merged, on each read (a child moved on its
+        own changes it)."""
+        if self._operation == Operation.DIFFERENCE:
+            return self._l_child.bounding_box
+        new_spans = _array_csg_spans_np(
+            np.asarray(self._l_child.bounding_box.T),
+            np.asarray(self._r_child.bounding_box.T),
+            self._operation,
+        )
+        return new_spans[:2].T
 
     @property
     def operation(self) -> Operation:
@@ -103,6 +102,7 @@ class CSGSurface(Intersectable):
         return self._l_child.surface_ids + self._r_child.surface_ids
 
     def _append_world_transform(self, new_transform):
+        # a traced factor is shared by the subtree, not re-made per child
         super()._append_world_transform(new_transform)
         self._l_child.transform(new_transform)
         self._r_child.transform(new_transform)

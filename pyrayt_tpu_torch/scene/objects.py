@@ -30,6 +30,15 @@ from pyrayt_tpu_torch.scene._backend import (
     is_traced,
     plain,
 )
+from pyrayt_tpu_torch.scene._factors import (
+    IDENTITY,
+    Factor,
+    compose,
+    constant_factor,
+    entries_factor,
+    matrix_factor,
+    rotation_factor,
+)
 
 __all__ = [
     "CountedObject",
@@ -72,14 +81,10 @@ def _copy(matrix):
     return matrix.clone() if isinstance(matrix, torch.Tensor) else copy.copy(matrix)
 
 
-def _transform_operands(new_transform, old):
-    """``(new, old)`` ready to multiply: NumPy arrays on the plain path,
-    tensors (of the first tensor's dtype and device) when either is one."""
-    new_transform = plain(new_transform)
-    ref = first_tensor(new_transform, old)
-    if ref is None:
-        return np.asarray(new_transform, dtype=float), old
-    return as_tensor_like(new_transform, ref), as_tensor_like(old, ref)
+_OBJ_ORIGIN = np.array([0.0, 0.0, 0.0, 1.0])
+_OBJ_DIRECTION = np.array([0.0, 0.0, 1.0, 0.0])
+_MOVE_ENTRIES = (3, 7, 11)  # flat positions of a move's x, y, z
+_SCALE_ENTRIES = (0, 5, 10)
 
 
 class WorldObject(CountedObject):
@@ -87,10 +92,17 @@ class WorldObject(CountedObject):
     (deg/rad units, negative scales prohibited).
 
     Any argument may be a tensor that requires grad; the world transform
-    then becomes a tensor carrying that gradient (scene/_backend.py)."""
+    then becomes a tensor carrying that gradient (scene/_backend.py).  From
+    the first such transform on, the object records each elementary factor
+    (scene/_factors.py) instead of multiplying it in; the world matrix, its
+    inverse, the origin, the direction and the bounding boxes are computed
+    on first use and kept until the next transform.  ``compile_scene``
+    composes the factors of every leaf in a few batched ops, so a rebuild
+    computes only what the trace reads."""
 
     @staticmethod
-    def _sin_cos(angle, units="deg"):
+    def _angle(angle, units="deg"):
+        """``(angle, scale to radians)``; a plain angle as a float."""
         if units == "deg":
             scale = math.pi / 180.0
         elif units == "rad":
@@ -98,45 +110,87 @@ class WorldObject(CountedObject):
         else:
             raise ValueError(f"{units} is not a valid option for angle units")
         angle = plain(angle)
-        if is_traced(angle):
-            return torch.sin(angle * scale), torch.cos(angle * scale)
-        return math.sin(float(angle) * scale), math.cos(float(angle) * scale)
+        return (angle if is_traced(angle) else float(angle)), scale
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self._obj_origin = np.array([0.0, 0.0, 0.0, 1.0])
-        self._obj_direction = np.array([0.0, 0.0, 1.0, 0.0])
-        self._world_coordinate_transform = np.identity(4)
-        self._object_coordinate_transform = np.identity(4)
-        self._world_origin = self._obj_origin
-        self._world_direction = self._obj_direction
+        # the product of the plain transforms, then the recorded factors
+        # from the first traced transform on
+        self._plain_tx = IDENTITY.copy()
+        self._factors = ()
+        self._cache = {}
         # callbacks fired whenever the world transform changes
-        self.var_watchlist = [self._world_matrix_update_handler]
+        self.var_watchlist = [self._invalidate]
 
     # -- transform bookkeeping ------------------------------------------------
 
-    def _world_matrix_update_handler(self):
-        tx = self._world_coordinate_transform
-        if isinstance(tx, torch.Tensor):
-            self._world_origin = tx @ as_tensor_like(self._obj_origin, tx)
-            world_dir = tx @ as_tensor_like(self._obj_direction, tx)
-            # the norm check needs a concrete value; traced values skip it
-            self._world_direction = world_dir / torch.linalg.norm(world_dir)
-            self._object_coordinate_transform = affine_inverse(tx)
-            return
-        self._world_origin = tx @ self._obj_origin
-        world_dir = tx @ self._obj_direction
-        norm = np.linalg.norm(world_dir)
-        if float(norm) < 1e-7:
-            raise ValueError(f"Measured Norm of World Vector below tolerance: {norm}")
-        self._world_direction = world_dir / norm
-        self._object_coordinate_transform = np.linalg.inv(tx)
-
     def _append_world_transform(self, new_transform):
-        new, old = _transform_operands(new_transform, self._world_coordinate_transform)
-        self._world_coordinate_transform = new @ old
+        """Apply ``new_transform``: a host (4, 4) matrix or a traced
+        :class:`~pyrayt_tpu_torch.scene._factors.Factor`."""
+        if isinstance(new_transform, Factor) or self._factors:
+            if not isinstance(new_transform, Factor):
+                new_transform = constant_factor(new_transform)
+            self._factors = self._factors + (new_transform,)
+        else:
+            tx = new_transform @ self._plain_tx
+            direction = tx[:, 2]  # tx @ (0, 0, 1, 0)
+            if float(direction @ direction) < 1e-14:
+                norm = np.linalg.norm(direction)
+                raise ValueError(f"Measured Norm of World Vector below tolerance: {norm}")
+            self._plain_tx = tx
         for fn in self.var_watchlist:
             fn()
+
+    def _invalidate(self):
+        self._cache.clear()
+
+    def _world_chain(self):
+        """``(m0, factors)``: the host product of the plain transforms and
+        the factors recorded after them (empty for a plain object)."""
+        return self._plain_tx, self._factors
+
+    def _cached(self, name, fn):
+        value = self._cache.get(name)
+        if value is None:
+            value = self._cache[name] = fn()
+        return value
+
+    @property
+    def _world_coordinate_transform(self):
+        if not self._factors:
+            return self._plain_tx
+        return self._cached("world", lambda: compose([self._world_chain()])[0][0])
+
+    @property
+    def _object_coordinate_transform(self):
+        def inverse():
+            tx = self._world_coordinate_transform
+            return affine_inverse(tx) if isinstance(tx, torch.Tensor) else np.linalg.inv(tx)
+
+        return self._cached("inverse", inverse)
+
+    @property
+    def _world_origin(self):
+        def origin():
+            tx = self._world_coordinate_transform
+            if isinstance(tx, torch.Tensor):
+                return tx @ as_tensor_like(_OBJ_ORIGIN, tx)
+            return tx @ _OBJ_ORIGIN
+
+        return self._cached("origin", origin)
+
+    @property
+    def _world_direction(self):
+        def direction():
+            tx = self._world_coordinate_transform
+            if isinstance(tx, torch.Tensor):
+                # the norm check needs a concrete value; traced values skip it
+                world_dir = tx @ as_tensor_like(_OBJ_DIRECTION, tx)
+                return world_dir / torch.linalg.norm(world_dir)
+            world_dir = tx @ _OBJ_DIRECTION
+            return world_dir / np.linalg.norm(world_dir)
+
+        return self._cached("direction", direction)
 
     # -- getters --------------------------------------------------------------
 
@@ -166,17 +220,24 @@ class WorldObject(CountedObject):
 
     # -- movement -------------------------------------------------------------
 
+    @staticmethod
+    def _entries(flat, values):
+        """The identity with ``values`` at the flat positions ``flat``: a
+        host matrix, or a traced factor when any value is traced."""
+        tx = IDENTITY.copy()
+        traced_at, traced = [], []
+        for position, value in zip(flat, values):
+            if is_traced(value):
+                traced_at.append(position)
+                traced.append(value)
+            else:
+                tx.flat[position] = float(value)
+        if traced:
+            return entries_factor(tx, traced_at, traced)
+        return tx
+
     def move(self, x=0, y=0, z=0):
-        x, y, z = plain((x, y, z))
-        if is_traced(x, y, z):
-            ref = first_tensor(x, y, z)
-            tx = torch.eye(4, dtype=ref.dtype, device=ref.device)
-            column = as_tensor_like((x, y, z), ref)
-            tx = torch.cat((torch.cat((tx[:3, :3], column[:, None]), dim=1), tx[3:]))
-        else:
-            tx = np.identity(4)
-            tx[:-1, -1] = [float(v) for v in (x, y, z)]
-        self._append_world_transform(tx)
+        self._append_world_transform(self._entries(_MOVE_ENTRIES, plain((x, y, z))))
         return self
 
     def move_x(self, movement):
@@ -193,12 +254,7 @@ class WorldObject(CountedObject):
         for val in (x, y, z):
             if not is_traced(val) and float(val) < 0:
                 raise ValueError("Negative values for scale operations are prohibited")
-        if is_traced(x, y, z):
-            ref = first_tensor(x, y, z)
-            tx = torch.diag(as_tensor_like((x, y, z, 1.0), ref))
-        else:
-            tx = np.diag((float(x), float(y), float(z), 1.0))
-        self._append_world_transform(tx)
+        self._append_world_transform(self._entries(_SCALE_ENTRIES, (x, y, z)))
         return self
 
     def scale_x(self, scale_val):
@@ -213,47 +269,42 @@ class WorldObject(CountedObject):
     def scale_all(self, scale_val):
         return self.scale(scale_val, scale_val, scale_val)
 
-    @staticmethod
-    def _rotation_matrix(axes, sin_a, cos_a):
+    def _rotate(self, axes, angle, units):
+        angle, scale = self._angle(angle, units)
+        if is_traced(angle):
+            self._append_world_transform(rotation_factor(axes, angle, scale))
+            return self
+        sin_a, cos_a = math.sin(angle * scale), math.cos(angle * scale)
         (i, j) = axes
-        if is_traced(sin_a, cos_a):
-            ref = first_tensor(sin_a, cos_a)
-            entries = {(i, i): cos_a, (j, j): cos_a, (i, j): -sin_a, (j, i): sin_a}
-            one = torch.ones((), dtype=ref.dtype, device=ref.device)
-            rows = [
-                torch.stack(
-                    [
-                        as_tensor_like(entries.get((r, c), one if r == c else 0.0 * one), ref)
-                        for c in range(4)
-                    ]
-                )
-                for r in range(4)
-            ]
-            return torch.stack(rows)
-        tx = np.identity(4)
+        tx = IDENTITY.copy()
         tx[i, i] = cos_a
         tx[j, j] = cos_a
         tx[i, j] = -sin_a
         tx[j, i] = sin_a
-        return tx
+        self._append_world_transform(tx)
+        return self
 
     def rotate_x(self, angle, units="deg"):
-        sin_a, cos_a = self._sin_cos(angle, units)
-        self._append_world_transform(self._rotation_matrix((1, 2), sin_a, cos_a))
-        return self
+        return self._rotate((1, 2), angle, units)
 
     def rotate_y(self, angle, units="deg"):
-        sin_a, cos_a = self._sin_cos(angle, units)
-        self._append_world_transform(self._rotation_matrix((2, 0), sin_a, cos_a))
-        return self
+        return self._rotate((2, 0), angle, units)
 
     def rotate_z(self, angle, units="deg"):
-        sin_a, cos_a = self._sin_cos(angle, units)
-        self._append_world_transform(self._rotation_matrix((0, 1), sin_a, cos_a))
-        return self
+        return self._rotate((0, 1), angle, units)
 
     def transform(self, transform_matrix):
-        self._append_world_transform(transform_matrix)
+        if isinstance(transform_matrix, np.ndarray) and transform_matrix.dtype == np.float64:
+            self._append_world_transform(transform_matrix)
+            return self
+        transform_matrix = plain(transform_matrix)
+        if isinstance(transform_matrix, Factor):
+            self._append_world_transform(transform_matrix)
+        elif is_traced(transform_matrix):
+            ref = first_tensor(transform_matrix)
+            self._append_world_transform(matrix_factor(as_tensor_like(transform_matrix, ref)))
+        else:
+            self._append_world_transform(np.asarray(transform_matrix, dtype=float))
         return self
 
 
@@ -336,8 +387,13 @@ def _corners_to_cube_points(spans):
 class TracerSurface(Intersectable, abc.ABC):
     """Binds a primitive type code + packed parameters + material + transform.
 
-    Bounding boxes are host-side NumPy values taken from detached numbers:
-    the trace never reads them, so no gradient needs to flow through them.
+    ``params`` are plain numbers, or entries some of which are traced (or a
+    traced vector); the packed row is made on first use and
+    ``compile_scene`` packs every leaf's traced entries at once.
+    ``bounding_spans`` is a (3, 2) array or a function of the host packed
+    row that returns one.  Bounding boxes are host-side NumPy values taken
+    from detached numbers, made on first use: the trace never reads them,
+    so no gradient needs to flow through them.
     """
 
     prim_type: int  # set by subclasses
@@ -346,24 +402,57 @@ class TracerSurface(Intersectable, abc.ABC):
         super().__init__(*args, **kwargs)
         params = plain(params)
         if is_traced(params):
-            ref = first_tensor(params)
-            params = as_tensor_like(params, ref).reshape(-1)
-            pad = torch.zeros(
-                prim.PARAM_WIDTH - params.shape[0], dtype=ref.dtype, device=ref.device
-            )
-            packed = torch.cat((params, pad))
+            self._prim_source = params if isinstance(params, torch.Tensor) else tuple(params)
+            self._packed = None
         else:
             params = np.asarray(params, dtype=float).reshape(-1)
             packed = np.zeros(prim.PARAM_WIDTH)
             packed[: params.shape[0]] = params
-        self._prim_params = packed
+            self._prim_source = None
+            self._packed = packed
         self.material = material
-        self._local_bounding_points = _corners_to_cube_points(bounding_spans)
-        self._boundary_box_update_fn()
-        self.var_watchlist.append(self._boundary_box_update_fn)
+        self._local_spans = bounding_spans
+        self._local_points = None
 
-    def _boundary_box_update_fn(self):
-        self._aobb_spans = bounding_box_spans(self.bounding_points)
+    def _prim_entries(self):
+        """``(row, entries)``: the host packed row (zero where traced) and
+        the traced ``(column, 0-d tensor)`` entries."""
+        if self._prim_source is None:
+            return self._packed, ()
+        row = np.zeros(prim.PARAM_WIDTH)
+        source = self._prim_source
+        if isinstance(source, torch.Tensor):
+            source = source.reshape(-1)
+            return row, tuple((col, source[col]) for col in range(source.shape[0]))
+        entries = []
+        for col, value in enumerate(source):
+            if is_traced(value):
+                entries.append((col, value))
+            else:
+                row[col] = float(value)
+        return row, tuple(entries)
+
+    def _host_row(self):
+        if self._prim_source is None:
+            return self._packed
+        row, entries = self._prim_entries()
+        row = row.copy()
+        for col, value in entries:
+            row[col] = float(host(value))
+        return row
+
+    @property
+    def _local_bounding_points(self):
+        if self._local_points is None:
+            spans = self._local_spans
+            if callable(spans):
+                spans = spans(self._host_row())
+            self._local_points = _corners_to_cube_points(spans)
+        return self._local_points
+
+    @property
+    def _aobb_spans(self):
+        return self._cached("aobb", lambda: bounding_box_spans(self.bounding_points))
 
     @property
     def bounding_points(self):
@@ -371,7 +460,18 @@ class TracerSurface(Intersectable, abc.ABC):
 
     @property
     def prim_params(self):
-        return self._prim_params
+        if self._packed is None:
+            ref = first_tensor(self._prim_source)
+            params = as_tensor_like(self._prim_source, ref).reshape(-1)
+            pad = torch.zeros(
+                prim.PARAM_WIDTH - params.shape[0], dtype=ref.dtype, device=ref.device
+            )
+            self._packed = torch.cat((params, pad))
+        return self._packed
+
+    @property
+    def _prim_params(self):
+        return self.prim_params
 
     def intersect(self, rays):
         """Eager single-surface intersection of ``(2, 4, n)`` (or ``(2, 4)``)

@@ -1,8 +1,9 @@
 """Concrete traceable surfaces (counterpart of ``pyrayt_tpu.scene.surfaces``).
 
-Parameters are packed on NumPy for plain numbers and as torch tensors when
-any parameter is a tensor that requires grad (scene/_backend.py); the
-bounding spans are host values either way.
+Parameters are packed on NumPy for plain numbers; when any parameter is a
+tensor that requires grad (scene/_backend.py) the surface keeps the entries
+and packs them on first use.  The bounding spans are host values either
+way, made from the host parameters on first use.
 """
 
 from __future__ import annotations
@@ -11,28 +12,59 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch.core import primitives as prim
-from pyrayt_tpu_torch.scene._backend import as_tensor_like, first_tensor, host, is_traced, plain
+from pyrayt_tpu_torch.scene._backend import as_tensor_like, first_tensor, is_traced, plain
 from pyrayt_tpu_torch.scene.objects import TracerSurface
 
 __all__ = ["Sphere", "Paraboloid", "XYPlane", "Cuboid", "Cylinder"]
 
 
 def _params(*values):
-    """Packed parameter values: a tensor when any is traced, else floats."""
+    """Parameter values: the entries when any is traced, else floats."""
     values = plain(values)
     if is_traced(values):
-        return as_tensor_like(values, first_tensor(values))
+        return values
     return np.asarray(values, dtype=float)
+
+
+def _sphere_spans(p):
+    r = float(p[0])
+    return np.stack((np.array((-r, -r, -r)), np.array((r, r, r))), axis=1)
+
+
+def _paraboloid_spans(p):
+    f, h = p[0], p[1]
+    radius_at_max = np.sqrt(max(4.0 * f * h, 0.0))
+    return np.stack(
+        (
+            np.array((-radius_at_max, -radius_at_max, 0.0)),
+            np.array((radius_at_max, radius_at_max, h)),
+        ),
+        axis=1,
+    )
+
+
+def _plane_spans(p):
+    w, l = p[0], p[1]
+    return np.stack((np.array((-w / 2, -l / 2, -0.01)), np.array((w / 2, l / 2, 0.01))), axis=1)
+
+
+def _cube_spans(p):
+    return p[:6].reshape(3, 2)
+
+
+def _cylinder_spans(p):
+    r, h_min, h_max = p[0], p[1], p[2]
+    return np.stack((np.array((-r, -r, h_min)), np.array((r, r, h_max))), axis=1)
 
 
 class Sphere(TracerSurface):
     prim_type = prim.SPHERE
 
     def __init__(self, radius=1, material=None, *args, **kwargs):
-        params = _params(radius)
-        r = float(host(params)[0])
-        spans = np.stack((np.array((-r, -r, -r)), np.array((r, r, r))), axis=1)
-        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
+        super().__init__(
+            params=_params(radius), bounding_spans=_sphere_spans, material=material, *args,
+            **kwargs
+        )
 
     def get_radius(self):
         return self._prim_params[0]
@@ -42,19 +74,14 @@ class Paraboloid(TracerSurface):
     prim_type = prim.PARABOLOID
 
     def __init__(self, focus=1, height=1, material=None, *args, **kwargs):
-        params = _params(focus, height)
-        f, h = host(params)
-        if (not is_traced(plain(focus)) and f <= 0) or (not is_traced(plain(height)) and h <= 0):
-            raise ValueError("Focus and height must be positive numbers")
-        radius_at_max = np.sqrt(max(4.0 * f * h, 0.0))
-        spans = np.stack(
-            (
-                np.array((-radius_at_max, -radius_at_max, 0.0)),
-                np.array((radius_at_max, radius_at_max, h)),
-            ),
-            axis=1,
+        focus, height = plain((focus, height))
+        for value in (focus, height):
+            if not is_traced(value) and float(value) <= 0:
+                raise ValueError("Focus and height must be positive numbers")
+        super().__init__(
+            params=_params(focus, height), bounding_spans=_paraboloid_spans, material=material,
+            *args, **kwargs
         )
-        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
     def get_focus(self):
         return self._prim_params[0]
@@ -64,12 +91,10 @@ class XYPlane(TracerSurface):
     prim_type = prim.PLANE
 
     def __init__(self, width=2, length=2, material=None, *args, **kwargs):
-        params = _params(width, length)
-        w, l = host(params)
-        spans = np.stack(
-            (np.array((-w / 2, -l / 2, -0.01)), np.array((w / 2, l / 2, 0.01))), axis=1
+        super().__init__(
+            params=_params(width, length), bounding_spans=_plane_spans, material=material, *args,
+            **kwargs
         )
-        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
 
 
 class Cuboid(TracerSurface):
@@ -90,7 +115,7 @@ class Cuboid(TracerSurface):
             spans = np.sort(np.stack((lo, hi), axis=1), axis=1)  # (3, 2)
         super().__init__(
             params=spans.reshape(-1),
-            bounding_spans=host(spans),
+            bounding_spans=_cube_spans,
             material=material,
             *args,
             **kwargs,
@@ -98,7 +123,11 @@ class Cuboid(TracerSurface):
 
     @classmethod
     def from_sides(cls, x=1, y=1, z=1, **kwargs):
-        dims = _params(x, y, z)
+        dims = plain((x, y, z))
+        if is_traced(dims):
+            dims = as_tensor_like(dims, first_tensor(dims))
+        else:
+            dims = np.asarray(dims, dtype=float)
         return cls(tuple(-0.5 * dims), tuple(0.5 * dims), **kwargs)
 
     @classmethod
@@ -124,10 +153,13 @@ class Cylinder(TracerSurface):
         *args,
         **kwargs,
     ):
-        params = _params(radius, min_height, max_height, 1.0 if capped else 0.0)
-        r, h_min, h_max, _ = host(params)
-        spans = np.stack((np.array((-r, -r, h_min)), np.array((r, r, h_max))), axis=1)
-        super().__init__(params=params, bounding_spans=spans, material=material, *args, **kwargs)
+        super().__init__(
+            params=_params(radius, min_height, max_height, 1.0 if capped else 0.0),
+            bounding_spans=_cylinder_spans,
+            material=material,
+            *args,
+            **kwargs,
+        )
 
     def get_radius(self):
         return self._prim_params[0]

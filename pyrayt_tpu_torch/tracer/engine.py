@@ -249,9 +249,13 @@ def _wide_group_candidates(template, types_pos, slots, prim_table, obj_tx, rays)
 
 def _reduce_tree_axis(dist, leaf):
     """(T, n) per-tree candidates -> per-ray nearest; ties pick the lowest
-    tree index (``argmin`` returns the first minimum)."""
+    tree index (``argmin`` returns the first minimum) for the leaf, while
+    the distance is ``amin``, whose backward splits the cotangent evenly
+    among tied trees, as the JAX engine's ``jnp.min`` does.  The wide
+    kernels and their plain versions give it all to the first tree, as the
+    JAX package's wide kernels do."""
+    dmin = torch.amin(dist, dim=0)
     win = torch.argmin(dist, dim=0)
-    dmin = torch.gather(dist, 0, win[None])[0]
     lmin = torch.gather(leaf, 0, win[None])[0]
     return dmin, torch.where(torch.isinf(dmin), -1, lmin).to(torch.int32)
 

@@ -21,6 +21,9 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch.config import TraceConfig, default_device
+from pyrayt_tpu_torch.core.operations import affine_inverse
+from pyrayt_tpu_torch.scene._backend import as_tensor_like
+from pyrayt_tpu_torch.scene._factors import mat4_mul
 from pyrayt_tpu_torch.scene.compile import compile_scene
 from pyrayt_tpu_torch.tracer import engine
 from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
@@ -240,5 +243,13 @@ class pin:
     def __exit__(self, exception_type, exception_value, traceback):
         for this_object, starting_matrix in zip(self._obj_set, self._starting_matrices):
             final_matrix = this_object.get_world_transform()
+            if isinstance(final_matrix, torch.Tensor) or isinstance(starting_matrix, torch.Tensor):
+                # a traced pose: the same restore with tensor ops
+                start_inv = (affine_inverse(starting_matrix)
+                             if isinstance(starting_matrix, torch.Tensor)
+                             else as_tensor_like(np.linalg.inv(starting_matrix), final_matrix))
+                matrix_change = mat4_mul(final_matrix, start_inv)
+                this_object.transform(affine_inverse(matrix_change))
+                continue
             matrix_change = final_matrix @ np.linalg.inv(starting_matrix)
             this_object.transform(np.linalg.inv(matrix_change))

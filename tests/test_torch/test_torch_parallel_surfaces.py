@@ -29,6 +29,7 @@ from pyrayt_tpu.parallel.surfaces import replicated_nearest_hit as j_replicated_
 from pyrayt_tpu.scene import fresh_ids as j_fresh_ids
 from pyrayt_tpu.scene.compile import compile_scene as j_compile
 from pyrayt_tpu_torch.config import TraceConfig
+from pyrayt_tpu_torch.ops import fused_grad as fg
 from pyrayt_tpu_torch.parallel import pad_leaf_tables
 from pyrayt_tpu_torch.tracer import engine
 from torch_parallel_worlds import World, mla_system, port_rays, port_scene, ray_arrays, y_hits_loss
@@ -206,10 +207,9 @@ def test_wide_sharded_gradient_equals_jax(world):
 
 
 def test_wide_sharded_gradient_equals_the_one_process_engine(world):
-    """On rays that never meet two trees at one distance.  Where they do
-    (the grid rays above, on lenslet edges) the combine splits the
-    cotangent between the tied ranks, as the JAX package's min does, and
-    the port's one-process engine gives it all to the first tree."""
+    """On rays that never meet two trees at one distance (where they do,
+    the grid rays above on lenslet edges, both split the cotangent between
+    the tied trees, as the JAX package's min does: the F3 tests below)."""
     scene = port_scene(lambda m: mla_system(m, 4), "cpu")
     config = TraceConfig(generation_limit=3, fixed_loop=True)
     params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
@@ -232,23 +232,83 @@ def test_wide_sharded_trace_rejects(world, case, message):
         assert message in out["errors"][case]
 
 
-def test_f3_the_one_process_engine_gives_a_tie_to_the_first_tree(world):
-    """ROADMAP F3: the grid's rays at y = 0 meet two lenslets of one group
-    at the same distance.  The JAX package's engine splits the distance
-    cotangent between the tied trees (``jnp.min``), and so does the
-    sharded combine here, the two trees lying on different ranks; the
-    port's one-process engine (``engine._reduce_tree_axis``, argmin) and
-    its wide kernels give it all to the first tree.  When F3 is repaired
-    this test turns into an equality."""
+def _first_tree_reduce(dist, leaf):
+    """``engine._reduce_tree_axis`` under the first-tree rule: the distance
+    gathered at ``argmin``, so a tie's whole cotangent goes to the first
+    tree (the rule of the wide kernels and their plain versions)."""
+    win = torch.argmin(dist, dim=0)
+    dmin = torch.gather(dist, 0, win[None])[0]
+    lmin = torch.gather(leaf, 0, win[None])[0]
+    return dmin, torch.where(torch.isinf(dmin), -1, lmin).to(torch.int32)
+
+
+def _spy_ties(monkeypatch, reduce):
+    """Run ``reduce`` as the engine's tree-axis reduce and record, per
+    call, the rays whose nearest distance two or more trees share."""
+    tied = []
+
+    def spy(dist, leaf):
+        d = dist.detach()
+        dmin = d.amin(dim=0)
+        tied.append(((d == dmin).sum(dim=0) > 1) & torch.isfinite(dmin))
+        return reduce(dist, leaf)
+
+    monkeypatch.setattr(engine, "_reduce_tree_axis", spy)
+    return tied
+
+
+def _plain_engine_grads(scene, rays, config):
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
+    loss = y_hits_loss(engine.build_trace_fn(scene.spec, scene.materials, config)(params, rays))
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in params.items()}
+
+
+# the grid rays of the 4x4 array (128 rays, span 3.0) that meet two lenslets
+# of the group at one distance in some generation
+TIED_RAYS_4X4 = 2
+
+
+def test_f3_the_one_process_engine_splits_a_tie_as_jax_does(world, monkeypatch):
+    """ROADMAP F3, closed: the grid's rays at y = 0 meet two lenslets of one
+    group at the same distance.  The JAX package's engine splits the
+    distance cotangent between the tied trees (``jnp.min``), so does the
+    sharded combine here, the two trees lying on different ranks, and so
+    does the port's one-process engine (``engine._reduce_tree_axis``,
+    ``amin``)."""
     scene = port_scene(lambda m: mla_system(m, 4), "cpu")
     config = TraceConfig(generation_limit=3, fixed_loop=True)
-    params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
-    loss = y_hits_loss(engine.build_trace_fn(scene.spec, scene.materials, config)(
-        params, port_rays(world.inputs["mla128"], "cpu")))
-    loss.backward()
+    tied = _spy_ties(monkeypatch, engine._reduce_tree_axis)
+    value, grads = _plain_engine_grads(scene, port_rays(world.inputs["mla128"], "cpu"), config)
+    assert int(torch.stack(tied).any(dim=0).sum()) == TIED_RAYS_4X4
     ref = world.refs["mla128_grad"]
-    assert loss.item() == pytest.approx(ref["loss"], rel=RTOL)
-    gap = float(np.abs(params["world"].grad.numpy() - ref["world"]).max())
+    assert value == pytest.approx(ref["loss"], rel=RTOL)
+    for key in ("world", "prim", "glass"):
+        np.testing.assert_allclose(grads[key].numpy(), ref[key], rtol=GRAD_RTOL, atol=1e-12,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("wide_grad", ["staged", "fused"])
+def test_f3_the_kernel_route_gives_a_tie_to_the_first_tree(world, monkeypatch, wide_grad):
+    """The wide kernels follow K2's win codes, so on the same tie rays they
+    give the whole cotangent to the first tree, as the JAX package's wide
+    kernels do (``pyrayt_tpu/ops/fused_grad.py:316-319``).  On the CPU the
+    kernel route's wrappers run the plain versions (K2's, then K5-K7's or
+    K8's): they equal autograd of the plain engine under the first-tree
+    rule on every ray, the tied ones included, and miss the split."""
+    scene = port_scene(lambda m: mla_system(m, 4), "cpu")
+    rays = port_rays(world.inputs["mla128"], "cpu")
+    config = TraceConfig(generation_limit=3, fixed_loop=True, wide_grad=wide_grad)
+    params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
+    loss = y_hits_loss(fg.build_fused_vjp_trace_fn(scene.spec, scene.materials, config)(
+        params, rays))
+    loss.backward()
+    tied = _spy_ties(monkeypatch, _first_tree_reduce)
+    value, first_tree = _plain_engine_grads(scene, rays, config)
+    assert int(torch.stack(tied).any(dim=0).sum()) == TIED_RAYS_4X4
+    assert loss.item() == pytest.approx(value, rel=RTOL)
+    for key in ("world", "prim", "glass"):
+        np.testing.assert_allclose(params[key].grad.numpy(), first_tree[key].numpy(),
+                                   rtol=GRAD_RTOL, atol=1e-12, err_msg=key)
+    gap = float(np.abs(params["world"].grad.numpy() - world.refs["mla128_grad"]["world"]).max())
     assert gap > 0.1, gap
-    np.testing.assert_allclose(params["glass"].grad.numpy(), ref["glass"], rtol=GRAD_RTOL,
-                               atol=1e-12)
