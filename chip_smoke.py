@@ -144,6 +144,27 @@ raises, and any failure exits non-zero:
              with the launch counts at 0 in its rank and reads them
              after; its kernels must launch, no other kernel and no plain
              path may.
+18. examples — the scripts of examples_torch/ and its notebook, the JAX
+             repository's examples on the port: (a) each script run as a
+             user runs it (``python examples_torch/<name>.py``, and
+             ``microlens_array.py --optimize 30``), the six at once: exit 0
+             and the lines tests/test_examples asserts of the JAX script;
+             (c) meanwhile at the CPU tests' sizes, float64, each script and
+             the notebook on the card through the kernels against the same
+             call on this machine's CPU (the plain versions): every printed
+             line equal (a number printed at full precision within RTOL64),
+             the microlens value within RTOL64 and gradient within REL64,
+             the per-lenslet history and radii within RTOL64; (b) then in
+             this process at full width, float32: the narrow scripts,
+             ``lens_design.main(steps=300)``, the notebook's code cells
+             (``STEPS = 300``; the drawing cells only where matplotlib is
+             installed), ``microlens_array.main(n=16, n_rays=2**16,
+             steps=30)`` and ``main_per_lenslet`` at 8x8 (2**18 rays, the
+             0.24 -> below 0.12 mm witness) and 16x16 (2**16 rays), each
+             with the launch counts at 0 before and read after: the kernels
+             of its path (K1; K1 + K3; K2 + K5-K7) launch and no other,
+             every loss history falls; each run's host seconds and ms per
+             optimize step.  Its launches join the kernels line's.
 
 The times of phases 5, 8 and 13-15 are one call between two CUDA events
 (the wrapper's host work before its launch inside).  A kernel's own time
@@ -163,6 +184,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -969,6 +991,10 @@ def burst_ms(torch, fn, repeats=20):
     return start.elapsed_time(end) / repeats
 
 
+# profiler sessions ``device_ms`` runs before it gives up on a kernel
+PROFILER_SESSIONS = 3
+
+
 def device_ms(torch, fn, names, calls=PROFILED_STEPS):
     """Device time of one call of ``fn`` under ``torch.profiler`` (CPU and
     CUDA activities, ``calls`` calls after a warm-up, then a synchronize).
@@ -978,28 +1004,32 @@ def device_ms(torch, fn, names, calls=PROFILED_STEPS):
     Returns ``(ms, by_kernel)``: ``ms`` sums the kernels whose names hold
     one of ``names`` (the kernel under test, its reduce included);
     ``by_kernel`` maps every kernel the call launched to its ms per call.
-    Raises where the profiler recorded none of ``names``: late in a long
-    process (this script after its training phases) sessions were seen to
-    record no device activity at all, so ``kernel_device_times`` runs
-    first."""
+    A session that recorded none of ``names`` is run again, up to
+    PROFILER_SESSIONS in all, and then this raises: late in a long process
+    (this script after its training phases) sessions were seen to record no
+    device activity at all, so ``kernel_device_times`` runs first, and
+    one session early in phase 1b recorded nothing too (torch 2.11)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        us = device_us(e)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            by_kernel[e.key] = us / e.count / 1e3 * max(1, round(e.count / calls))
-    ms = sum(v for k, v in by_kernel.items() if any(name in k for name in names))
-    if ms <= 0:
-        raise RuntimeError(f"torch.profiler recorded none of {names} on this card (device "
-                           f"kernels seen: {sorted(by_kernel)})")
-    return ms, {short_kernel_name(k): v for k, v in by_kernel.items()}
+    for session in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            us = device_us(e)
+            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                by_kernel[e.key] = us / e.count / 1e3 * max(1, round(e.count / calls))
+        ms = sum(v for k, v in by_kernel.items() if any(name in k for name in names))
+        if ms > 0:
+            return ms, {short_kernel_name(k): v for k, v in by_kernel.items()}
+        log(f"device times: profiler session {session + 1} recorded none of {names} (device "
+            f"kernels seen: {sorted(by_kernel)})")
+    raise RuntimeError(f"torch.profiler recorded none of {names} on this card in "
+                       f"{PROFILER_SESSIONS} sessions")
 
 
 def short_kernel_name(key):
@@ -1547,7 +1577,8 @@ def k8_bytes(spec, inputs, records, masks, ran, generic):
     skip_checks = int((masks[:-1] & ~ran[1:]).sum())
     tables = (item * (22 * spec.n_leaves + 7 * glass.shape[0] + 6 * cull.shape[0])
               + 4 * slots.numel())
-    loss = item * (15 * ran_total + 3 * skip_checks + 24 * n) + (g_count - 1) * n + ran_total + tables
+    loss = (item * (15 * ran_total + 3 * skip_checks + 24 * n) + (g_count - 1) * n + ran_total
+            + tables)
     return loss - ran_total + item * (15 * ran_total + 11 * n) if generic else loss
 
 
@@ -1596,7 +1627,8 @@ def wide_fused_phase(torch, pyrayt, comp, metrics, ft, fg, engine, TraceConfig, 
                     hold(torch, held, "against_staged", BWD_NAMES, k8,
                          fg.staged_bwd(*staged_args, **kw), dtype)
             stats[tag] = held
-            log(f"wide fused backward against its plain version{' and the staged backward' if dtype == torch.float64 else ''} "
+            staged = " and the staged backward" if dtype == torch.float64 else ""
+            log(f"wide fused backward against its plain version{staged} "
                 f"({tag}, {spec.n_leaves} leaves, {N_RAYS} rays, RmsSpotRadius loss mode and "
                 f"lenslet blur generic mode): two launches bit-identical: {identical}; "
                 + json.dumps(held))
@@ -2469,6 +2501,350 @@ def parallel_phase(torch, np, pyrayt, comp, matl, metrics, TraceConfig, fresh_id
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 18. examples: the scripts of examples_torch/ on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(HERE, "examples_torch")
+# (a) each script as a user runs it, and the lines that
+# tests/test_examples/test_examples_smoke.py asserts of the JAX script
+EXAMPLE_COMMANDS = (
+    (("convex_collimator.py",), ("traced 150 segments", "True")),
+    (("chromatic_dispersion.py",), ("->",) * 11),
+    (("reflective_beam_expander.py",), ("beam expansion: 4.000x",)),
+    (("lens_design.py",), ("doublet", "optimized", "chromatic aberration reduced: True")),
+    (("microlens_array.py",), ("16x16 lenslets",)),
+    (("microlens_array.py", "--optimize", "30"), ("16x16 lenslets", "optimize(30 steps)")),
+)
+EXAMPLE_TIMEOUT_S = 300
+# the kernels on each script's path, by the name of the kernels line; no
+# example runs K4 (a generic narrow loss) or K8 (wide_grad="fused")
+NARROW_PATH = ("fused_trace",)
+DESIGN_PATH = ("fused_trace", "fused_bwd_loss")
+ARRAY_PATH = ("fused_trace_wide", "staged_tail", "staged_group", "staged_singles")
+# (b) PERF.md's per-lenslet witness: mean |r - nominal| from about 0.24 mm
+PER_LENSLET_START, PER_LENSLET_BOUND = (0.2, 0.3), 0.12
+# (c) a number printed at full precision (``print(x)``) shows its last
+# bits: held within this relative bound instead of digit by digit
+FULL_DIGITS = 13
+NUMBER = re.compile(r"[-+]?\d+\.\d+(?:e[-+]?\d+)?")
+
+
+def significant_digits(number):
+    mantissa = number.lower().split("e")[0]
+    return len(mantissa.lstrip("+-").replace(".", "").lstrip("0"))
+
+
+def line_faults(lines, expected, rtol):
+    """The pairs of printed lines that differ: equal text, except numbers
+    printed at full precision (FULL_DIGITS significant digits or more in
+    both), which agree within ``rtol``."""
+    if len(lines) != len(expected):
+        return [("line count", len(lines), len(expected))]
+    faults = []
+    for got, want in zip(lines, expected):
+        if got == want:
+            continue
+        got_nums, want_nums = NUMBER.findall(got), NUMBER.findall(want)
+        if NUMBER.split(got) != NUMBER.split(want) or not all(
+                a == b or (min(significant_digits(a), significant_digits(b)) >= FULL_DIGITS
+                           and abs(float(a) - float(b)) <= rtol * abs(float(b)))
+                for a, b in zip(got_nums, want_nums)):
+            faults.append((got, want))
+    return faults
+
+
+def load_example(name, directory=EXAMPLES):
+    """``<directory>/<name>.py`` loaded by path as ``<directory's
+    name>_<name>`` (``examples_torch_convex_collimator``): never the module
+    of another directory's script of the same name that ``sys.modules``
+    holds (tests/test_examples imports the JAX ones by bare name)."""
+    import importlib.util
+
+    module_name = f"{os.path.basename(directory)}_{name}"
+    if module_name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            module_name, os.path.join(directory, f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[module_name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[module_name]
+
+
+def notebook_cells(replacements, directory=EXAMPLES):
+    """The code cells of ``<directory>/lens_design.ipynb``, each ``(old,
+    new)`` of ``replacements`` made where it occurs (each must occur)."""
+    with open(os.path.join(directory, "lens_design.ipynb")) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    for old, new in replacements:
+        assert any(old in cell for cell in cells), old
+        cells = [cell.replace(old, new) for cell in cells]
+    return cells
+
+
+def run_notebook(replacements, directory=EXAMPLES):
+    """Runs the notebook's code cells in one namespace; returns it.  Where
+    matplotlib is not installed the cells that draw (``.show(``, ``plt.``)
+    are left out and named in the log."""
+    try:
+        import matplotlib
+    except ImportError:
+        matplotlib = None
+    if matplotlib is not None:
+        matplotlib.use("Agg")
+    namespace = {"__name__": f"{os.path.basename(directory)}_lens_design_notebook"}
+    for i, cell in enumerate(notebook_cells(replacements, directory)):
+        if matplotlib is None and (".show(" in cell or "plt." in cell):
+            log(f"examples: notebook code cell {i} left out (matplotlib is not installed): "
+                + cell.splitlines()[-1])
+            continue
+        exec(compile(cell, f"lens_design.ipynb code cell {i}", "exec"), namespace)
+    if matplotlib is not None:
+        import matplotlib.pyplot as plt
+
+        plt.close("all")
+    return namespace
+
+
+def captured(fn):
+    """(fn's return value, the lines it printed)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        value = fn()
+    return value, out.getvalue().splitlines()
+
+
+class optimize_timer:
+    """Wraps ``pyrayt_tpu_torch.analysis.optimize`` (where the scripts and
+    the notebook find it, at import or call time) to record each call's
+    host seconds, synchronized, steps and loss history."""
+
+    def __init__(self, torch, analysis, modules):
+        self.torch, self.analysis, self.modules = torch, analysis, modules
+        self.calls = []
+
+    def __enter__(self):
+        self.original = self.analysis.optimize
+
+        def timed(objective, theta0, steps=100, **kwargs):
+            self.torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = self.original(objective, theta0, steps=steps, **kwargs)
+            self.torch.cuda.synchronize()
+            self.calls.append({"seconds": time.perf_counter() - start, "steps": steps,
+                               "history": out[1]})
+            return out
+
+        self.analysis.optimize = timed
+        for module in self.modules:
+            if hasattr(module, "optimize"):
+                module.optimize = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.analysis.optimize = self.original
+        for module in self.modules:
+            if hasattr(module, "optimize"):
+                module.optimize = self.original
+
+
+def start_example_commands():
+    """(a): every command of EXAMPLE_COMMANDS started at once, as a user
+    runs it from the repository root (the package on PYTHONPATH)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    started = []
+    for args, expected in EXAMPLE_COMMANDS:
+        command = [sys.executable, os.path.join("examples_torch", args[0]), *args[1:]]
+        proc = subprocess.Popen(command, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started.append((args, expected, proc, time.perf_counter()))
+    return started
+
+
+def finish_example_commands(started):
+    """(a): waits for each command; it must exit 0 and print its lines."""
+    report = {}
+    try:
+        for args, expected, proc, start in started:
+            out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            name = " ".join(args)
+            report[name] = round(time.perf_counter() - start, 3)
+            log(f"examples (a) python examples_torch/{name}: exit {proc.returncode}, "
+                f"{report[name]:.1f} s (all six at once)\n" + out.rstrip())
+            assert proc.returncode == 0, (name, proc.returncode)
+            for text in set(expected):
+                assert out.count(text) >= expected.count(text), (name, text)
+    finally:
+        stop_example_commands(started)
+    return report
+
+
+def stop_example_commands(started):
+    for _, _, proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def counted(counters, fn):
+    """(fn's return value, the launches of each counter in the call)."""
+    for counter in counters.values():
+        counter.launches = 0
+    value = fn()
+    return value, {name: counter.launches for name, counter in counters.items()}
+
+
+def assert_path(label, launches, path):
+    """The kernels of ``path`` launched in a run, and no other."""
+    assert all(launches[k] > 0 for k in path), (label, path, launches)
+    assert not any(launches[k] for k in launches if k not in path), (label, path, launches)
+
+
+def compare_smoke_runs(np, smoke, counters, report):
+    """(c): each ``(label, path, call)`` of ``smoke`` on the card (its path's
+    kernels launched) and on the CPU, float64: printed lines equal (numbers
+    printed at full precision within RTOL64), the 4x4 microlens value
+    within RTOL64 and gradient within REL64, the per-lenslet history and
+    radii within RTOL64.  Fills ``report``."""
+    for label, path, call in smoke:
+        (card_value, card_lines), launches = counted(counters, lambda: captured(call("cuda")))
+        assert_path(label, launches, path)
+        cpu_value, cpu_lines = captured(call("cpu"))
+        faults = line_faults(card_lines, cpu_lines, RTOL64)
+        log(f"examples (c) {label}, float64, card vs CPU: {len(card_lines)} lines, faults "
+            f"{faults}; launches {json.dumps(launches)}")
+        assert not faults, (label, faults)
+        if label == "microlens main n=4":
+            (value, grad), (p_value, p_grad) = card_value, cpu_value
+            report[label] = {"value": [value, p_value], "grad": [grad, p_grad]}
+            assert abs(value - p_value) <= RTOL64 * abs(p_value), (value, p_value)
+            assert abs(grad - p_grad) <= REL64 * abs(p_grad), (grad, p_grad)
+        if label == "microlens per-lenslet n=4":
+            (history, theta), (p_history, p_theta) = card_value, cpu_value
+            radii, p_radii = theta["radii"].cpu().numpy(), p_theta["radii"].numpy()
+            report[label] = {
+                "history_rel": float(np.max(np.abs(np.subtract(history, p_history))
+                                            / np.abs(p_history))),
+                "radii_rel": float(np.max(np.abs(radii - p_radii) / np.abs(p_radii)))}
+            np.testing.assert_allclose(history, p_history, rtol=RTOL64, atol=0)
+            np.testing.assert_allclose(radii, p_radii, rtol=RTOL64, atol=0)
+
+
+def examples_phase(torch, np, ft, fg, device, phase_seconds):
+    """Phase 18 (module docstring): the example scripts of examples_torch/
+    and its notebook on the card.  Returns the launches of (b), the scripts
+    at full width, by the name of the kernels line."""
+    from pyrayt_tpu_torch import analysis
+
+    phase_start = time.perf_counter()
+    started = start_example_commands()
+    f64 = torch.float64
+    scripts = {name: load_example(name) for name in (
+        "convex_collimator", "chromatic_dispersion", "reflective_beam_expander", "lens_design",
+        "microlens_array")}
+    counters = rank_counters(ft, fg)
+
+    # (c) float64 on the card through the kernels against the same call on
+    # this machine's CPU (the plain versions), at the CPU tests' sizes
+    def notebook(dev, steps):
+        return lambda: run_notebook([("STEPS = 300", f"STEPS = {steps}"),
+                                     ("DEVICE = None", f"DEVICE = {dev!r}"),
+                                     ("DTYPE = torch.float32", "DTYPE = torch.float64")])
+
+    mla = scripts["microlens_array"]
+    smoke = [
+        ("convex_collimator", NARROW_PATH,
+         lambda dev: lambda: scripts["convex_collimator"].main(device=dev, dtype=f64)),
+        ("chromatic_dispersion", NARROW_PATH,
+         lambda dev: lambda: scripts["chromatic_dispersion"].main(device=dev, dtype=f64)),
+        ("reflective_beam_expander", NARROW_PATH,
+         lambda dev: lambda: scripts["reflective_beam_expander"].main(device=dev, dtype=f64)),
+        ("lens_design steps=3", DESIGN_PATH,
+         lambda dev: lambda: scripts["lens_design"].main(steps=3, device=dev, dtype=f64)),
+        ("notebook STEPS = 2", DESIGN_PATH, lambda dev: notebook(dev, 2)),
+        ("microlens main n=4", ARRAY_PATH,
+         lambda dev: lambda: mla.main(n=4, n_rays=1024, device=dev, dtype=f64)),
+        ("microlens per-lenslet n=4", ARRAY_PATH,
+         lambda dev: lambda: mla.main_per_lenslet(n=4, n_rays=1024, steps=3, device=dev,
+                                                  dtype=f64)),
+    ]
+    smoke_report = {}
+    try:
+        compare_smoke_runs(np, smoke, counters, smoke_report)
+    except BaseException:
+        stop_example_commands(started)
+        raise
+    log("examples (c) microlens, card against CPU at float64: " + json.dumps(smoke_report))
+    phase_seconds["examples_float64"] = time.perf_counter() - phase_start
+
+    start = time.perf_counter()
+    command_seconds = finish_example_commands(started)
+    phase_seconds["examples_commands"] = time.perf_counter() - start
+
+    # (b) in this process at full width, float32, with the launch counters
+    start = time.perf_counter()
+    full = [
+        ("convex_collimator", NARROW_PATH, lambda: scripts["convex_collimator"].main(
+            device=device)),
+        ("chromatic_dispersion", NARROW_PATH, lambda: scripts["chromatic_dispersion"].main(
+            device=device)),
+        ("reflective_beam_expander", NARROW_PATH,
+         lambda: scripts["reflective_beam_expander"].main(device=device)),
+        ("lens_design steps=300", DESIGN_PATH,
+         lambda: scripts["lens_design"].main(steps=300, device=device)),
+        ("notebook STEPS = 300", DESIGN_PATH,
+         lambda: run_notebook([])),
+        ("microlens main n=16 steps=30", ARRAY_PATH,
+         lambda: mla.main(n=16, n_rays=1 << 16, steps=30, device=device)),
+        ("microlens per-lenslet n=8", ARRAY_PATH,
+         lambda: mla.main_per_lenslet(n=8, n_rays=1 << 18, steps=30, device=device)),
+        ("microlens per-lenslet n=16", ARRAY_PATH,
+         lambda: mla.main_per_lenslet(n=16, n_rays=1 << 16, steps=30, device=device)),
+    ]
+    totals = dict.fromkeys(counters, 0)
+    times = {}
+    for label, path, call in full:
+        with optimize_timer(torch, analysis, scripts.values()) as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (value, lines), launches = counted(counters, lambda: captured(call))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        assert_path(label, launches, path)
+        for name, n in launches.items():
+            totals[name] += n
+        steps = sum(c["steps"] for c in timer.calls)
+        times[label] = {"host_s": seconds, "optimize_steps": steps, "ms_per_step": (
+            sum(c["seconds"] for c in timer.calls) / steps * 1e3 if steps else None)}
+        log(f"examples (b) {label}, float32: {seconds:.3f} s; launches {json.dumps(launches)}\n"
+            + "\n".join(lines))
+        text = "\n".join(lines)
+        if label.startswith("notebook"):
+            assert "optimized radii:" in text and "chromatic aberration reduced:" in text, text
+        elif label.startswith("lens_design"):
+            assert "chromatic aberration reduced: True" in text, text
+        elif label.startswith("microlens"):
+            history = timer.calls[0]["history"]
+            assert len(timer.calls) == 1 and min(history) < history[0], (label, history)
+        if label == "microlens per-lenslet n=8":
+            radii0 = MLA_R * (1.0 + 0.15 * np.random.default_rng(3).standard_normal(64))
+            err0 = float(np.abs(radii0 - MLA_R).mean())
+            err1 = float(np.abs(value[1]["radii"].cpu().numpy() - MLA_R).mean())
+            times[label]["mean_abs_r_err"] = [err0, err1]
+            assert PER_LENSLET_START[0] < err0 < PER_LENSLET_START[1], err0
+            assert err1 < PER_LENSLET_BOUND, err1
+    log(f"examples (b) times (host clock, synchronized; ms per optimize step inside "
+        f"optimize) on {card_line()}: " + json.dumps(times))
+    log("examples (a) command seconds, the six at once: " + json.dumps(command_seconds))
+    log("examples (b) launches: " + json.dumps(totals))
+    phase_seconds["examples_full_width"] = time.perf_counter() - start
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2917,6 +3293,7 @@ def main() -> int:
     render_phase(torch, np, comp, matl, ft, fresh_ids, device, phase_seconds)
     rank_launches = parallel_phase(torch, np, pyrayt, comp, matl, metrics, TraceConfig, fresh_ids,
                                    compile_scene, device, phase_seconds)
+    example_launches = examples_phase(torch, np, ft, fg, device, phase_seconds)
     log("phase seconds:", json.dumps(phase_seconds))
 
     def k_err(key):
@@ -2966,9 +3343,11 @@ def main() -> int:
     for entry in kernel_line:  # the kernel's own time is its device time (phase 1b)
         t = device_times[entry["name"]]
         entry.update(ms=t["device_ms"], event_ms=t["event_ms"], host_ms=t["host_ms"])
-        # phase 17's ranks, each path's counts read from 0 in its rank
+        # phase 17's ranks, each path's counts read from 0 in its rank, and
+        # phase 18's scripts at full width
         entry["rank_launches"] = rank_launches[entry["name"]]
-        entry["launches"] += rank_launches[entry["name"]]
+        entry["example_launches"] = example_launches[entry["name"]]
+        entry["launches"] += rank_launches[entry["name"]] + example_launches[entry["name"]]
     log(json.dumps({"kernels": kernel_line}))
     log(card)
     print(json.dumps({"ok": True, "device": {

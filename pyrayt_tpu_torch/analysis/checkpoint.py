@@ -44,12 +44,30 @@ def save_checkpoint(path: str, state) -> None:
             os.unlink(tmp)
 
 
-def restore_checkpoint(path: str):
+def _place_like(state, like):
+    """``state`` with each tensor that sits where ``like`` (the same
+    structure, by key and index) has a tensor moved to that tensor's device
+    and dtype."""
+    if isinstance(state, torch.Tensor) and isinstance(like, torch.Tensor):
+        return state.to(device=like.device, dtype=like.dtype)
+    if isinstance(state, dict) and isinstance(like, dict):
+        return {k: _place_like(v, like[k]) if k in like else v for k, v in state.items()}
+    if isinstance(state, (list, tuple)) and isinstance(like, (list, tuple)):
+        return type(state)(_place_like(v, like[i]) if i < len(like) else v
+                           for i, v in enumerate(state))
+    return state
+
+
+def restore_checkpoint(path: str, like=None):
     """The state saved by :func:`save_checkpoint` at ``path``, or None when
-    the file does not exist."""
+    the file does not exist.  With ``like`` (a template of the same
+    structure, as the JAX package's restore takes), each restored tensor
+    where ``like`` has a tensor takes that tensor's device and dtype;
+    without it, tensors stay on the CPU as saved."""
     if not os.path.exists(path):
         return None
-    return torch.load(path, weights_only=True)
+    state = torch.load(path, weights_only=True)
+    return state if like is None else _place_like(state, like)
 
 
 def latest_step(path: str) -> int:

@@ -114,8 +114,20 @@ def safe_sqrt(x):
     return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)), 0.0)
 
 
-def safe_normalize(vectors, dim=0, eps=0.0):
-    """Normalize along ``dim``; zero vectors stay zero (no NaN)."""
+def _dim_or_axis(dim, axis):
+    """The reduction dimension (default 0) of a call that may name it
+    ``axis``, the JAX package's keyword."""
+    if axis is None:
+        return 0 if dim is None else dim
+    if dim is not None:
+        raise TypeError("pass dim or its alias axis, not both")
+    return axis
+
+
+def safe_normalize(vectors, dim=None, eps=0.0, *, axis=None):
+    """Normalize along ``dim`` (alias ``axis``, default 0); zero vectors
+    stay zero (no NaN)."""
+    dim = _dim_or_axis(dim, axis)
     if dim == 0 and vectors.ndim >= 1:
         sq = _sum_rows(vectors * vectors)[None]
     else:
@@ -160,8 +172,10 @@ def binomial_root(a, b, c, disc=None):
     return torch.stack((row0, polyroots[1]))
 
 
-def element_wise_dot(mat_1, mat_2, dim=0):
-    """Column-wise (dim=0) or row-wise (dim=1) dot product."""
+def element_wise_dot(mat_1, mat_2, dim=None, *, axis=None):
+    """Column-wise (dim=0, the default) or row-wise (dim=1) dot product;
+    ``axis`` is an alias of ``dim``."""
+    dim = _dim_or_axis(dim, axis)
     if mat_1.ndim == 1:
         return torch.dot(mat_1, mat_2)
     if dim == 0:

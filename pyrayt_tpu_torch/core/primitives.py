@@ -334,14 +334,16 @@ def leaf_normal(type_code: int, points, params):
     raise ValueError(f"unknown primitive type code {type_code}")
 
 
-def leaf_normal_raw3(type_code, pts3, params):
+def leaf_normal_raw3(type_code, pts3, pr, s=None):
     """Unnormalized object-space normal as three xyz rows.
 
     Callers renormalize after the world (inverse-transpose) transform, and
     ``normalize(A @ normalize(n)) == normalize(A @ n)``, so this skips the
     per-primitive normalization of :func:`leaf_normal`; directions match.
-    ``params`` is the leaf's packed ``(PARAM_WIDTH,)`` vector.
+    ``pr`` is the leaf's packed ``(PARAM_WIDTH, ...)`` parameters or, with
+    a row ``s`` (the JAX package's form), a table whose row ``s`` they are.
     """
+    params = pr if s is None else pr[s]
     x, y, z = pts3
     zeros = torch.zeros_like(x)
     ones = zeros + 1.0

@@ -492,7 +492,8 @@ def _wide_box_pass(spec: SceneSpec, params, dtype):
             perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
             off = offsets[gi]
             slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
-            aabb[chunk_offsets[gi]:chunk_offsets[gi] + nc] = _chunk_union(mins[perm], maxs[perm], nc)
+            start = chunk_offsets[gi]
+            aabb[start:start + nc] = _chunk_union(mins[perm], maxs[perm], nc)
         else:
             perm = torch.arange(t_count, device=device)
         tree_box = torch.cat((t_min, t_max), dim=1)[perm]
@@ -1276,11 +1277,14 @@ def wide_kernel_inputs(spec: SceneSpec, params, rays: RaySet):
 
 
 @lru_cache(maxsize=64)
-def build_fused_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
+def build_fused_trace_fn(spec: SceneSpec, materials, config: TraceConfig,
+                         save_fold: bool = False):
     """``fn(params, initial_rays) -> TraceResult`` through :func:`fused_trace`
     (K1 on CUDA tensors) or, past 32 leaves, :func:`fused_trace_wide` (K2).
     Same contract as ``engine.build_trace_fn``; ``materials`` is accepted
-    for its signature."""
+    for its signature.  ``save_fold`` (wide scenes only) makes it return
+    ``(TraceResult, fold5 (G, 5, n), win (G, n) int32)``, the staged
+    backward's forward."""
     del materials  # packed kinds are read from the spec and the glass rows
     wide = not supports_fused(spec)
     if wide and not supports_fused_wide(spec):
@@ -1288,19 +1292,22 @@ def build_fused_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
             "scene has non-packed materials, no leaves, or no batchable tree groups; "
             "use the plain engine"
         )
+    if save_fold and not wide:
+        raise ValueError("save_fold is a wide-kernel (staged backward) mode")
 
-    def trace(params, initial_rays: RaySet) -> engine.TraceResult:
+    def trace(params, initial_rays: RaySet):
         if wide:
-            records, masks, fstate = fused_trace_wide(
-                spec, config, *wide_kernel_inputs(spec, params, initial_rays))
+            out = fused_trace_wide(spec, config, *wide_kernel_inputs(spec, params, initial_rays),
+                                   save_fold=save_fold)
         else:
-            records, masks, fstate = fused_trace(
-                spec, config, *kernel_inputs(params, initial_rays))
-        return engine.TraceResult(
+            out = fused_trace(spec, config, *kernel_inputs(params, initial_rays))
+        records, masks, fstate = out[:3]
+        result = engine.TraceResult(
             records=records,
             record_mask=masks,
             final_rays=rays_from_state(fstate),
             generations_run=masks.any(dim=1).sum(),
         )
+        return (result,) + tuple(out[3:]) if save_fold else result
 
     return trace

@@ -81,6 +81,11 @@ class TraceResult:
     final_rays: RaySet
     generations_run: torch.Tensor  # scalar int
 
+    def replace(self, **changes) -> "TraceResult":
+        """A copy with the named fields replaced (the JAX dataclass's
+        ``replace``)."""
+        return dataclasses.replace(self, **changes)
+
 
 def scene_tables(params):
     """Per-trace scene tables: object transforms ``obj_tx`` (S, 4, 4) =

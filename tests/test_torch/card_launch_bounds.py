@@ -48,7 +48,8 @@ def build(ft, source: Path, out: Path, flags):
             entry = m.group(1)
             continue
         if entry and "wide_fused_bwd_kernel" in entry:
-            kind = ("f32" if "IfLb" in entry else "f64") + ("_loss" if "Lb1" in entry else "_generic")
+            kind = (("f32" if "IfLb" in entry else "f64")
+                    + ("_loss" if "Lb1" in entry else "_generic"))
             u = usage.setdefault(kind, {})
             for key, pattern in (("stack", r"(\d+) bytes stack frame"),
                                  ("spill_stores", r"(\d+) bytes spill stores"),

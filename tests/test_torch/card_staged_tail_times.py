@@ -31,7 +31,8 @@ cotangents: it only splits the time.  Prints one JSON line per case and
 variant and a last JSON line with everything and the card's name and power
 limit.  ``--root`` imports ``pyrayt_tpu_torch`` from another checkout (e.g. the
 parent commit unpacked under ``build/parent``) and builds its sources; the
-scenes and the timing helpers are this checkout's ``chip_smoke.py``.  Needs one CUDA device and ``nvcc``.
+scenes and the timing helpers are this checkout's ``chip_smoke.py``.  Needs one CUDA device
+and ``nvcc``.
 """
 
 from __future__ import annotations
