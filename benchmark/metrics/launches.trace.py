@@ -1,0 +1,3 @@
+"""Device kernels launched per trace call, counted in the profiled window."""
+
+from benchmark.harness.readers import launches as read  # noqa: F401
