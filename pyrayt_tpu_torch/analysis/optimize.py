@@ -16,6 +16,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.analysis.checkpoint import restore_checkpoint, save_checkpoint
 from pyrayt_tpu_torch.analysis.gradcheck import _flatten
 from pyrayt_tpu_torch.config import TraceConfig
@@ -62,17 +63,20 @@ def build_objective(
 
     def objective(theta):
         with fresh_ids():
-            components = build_fn(theta)
+            with tracing.span("objective.build"):
+                components = build_fn(theta)
             scene = compile_scene(components, device=rays.device, dtype=rays.dtype)
         spec, materials = scene.spec, scene.materials
-        if fused_grad.pick_fused_grad(spec, config, rays.device, rays.n_rays):
-            if fused_loss:
-                value = fused_grad.build_fused_value_and_grad_fn(spec, materials, config, loss_fn)
-                return value(scene.params, rays)
-            trace = fused_grad.build_fused_vjp_trace_fn(spec, materials, config)
-        else:
-            trace = engine.build_trace_fn(spec, materials, config)
-        return loss_fn(trace(scene.params, rays))
+        with tracing.span("objective.loss"):
+            if fused_grad.pick_fused_grad(spec, config, rays.device, rays.n_rays):
+                if fused_loss:
+                    value = fused_grad.build_fused_value_and_grad_fn(spec, materials, config,
+                                                                     loss_fn)
+                    return value(scene.params, rays)
+                trace = fused_grad.build_fused_vjp_trace_fn(spec, materials, config)
+            else:
+                trace = engine.build_trace_fn(spec, materials, config)
+            return loss_fn(trace(scene.params, rays))
 
     return objective
 
@@ -151,19 +155,27 @@ def optimize(
         )
 
     for i in range(start, steps):
-        theta_in = snapshot()
-        opt.zero_grad()
-        loss = objective(rebuild(params))
-        loss.backward()
-        opt.step()
-        if sched is not None:
-            sched.step()
-        loss = float(loss.detach())
-        history.append(loss)
-        if loss < best_loss:  # the loss is evaluated at theta_in, before the update
-            best_theta, best_loss = theta_in, loss
-        if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
-            save(i + 1)
+        with tracing.span("optimize.step"):
+            theta_in = snapshot()
+            with tracing.span("optimize.zero_grad"):
+                opt.zero_grad()
+            with tracing.span("optimize.objective"):
+                loss = objective(rebuild(params))
+            with tracing.span("optimize.backward"):
+                loss.backward()
+            with tracing.span("optimize.update"):
+                opt.step()
+                if sched is not None:
+                    sched.step()
+            with tracing.span("optimize.readback"):  # the host waits for the card
+                loss = float(loss.detach())
+            history.append(loss)
+            if loss < best_loss:  # the loss is evaluated at theta_in, before the update
+                best_theta, best_loss = theta_in, loss
+            if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
+                with tracing.span("optimize.checkpoint"):
+                    save(i + 1)
     if checkpoint_path is not None and start < steps:
-        save(steps)
+        with tracing.span("optimize.checkpoint"):
+            save(steps)
     return (best_theta if best_loss < math.inf else snapshot()), history

@@ -66,6 +66,7 @@ from typing import Callable, Tuple
 import torch
 
 from pyrayt_tpu_torch import materials as matl
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.analysis import metrics as _m
 from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.core import primitives as prim_mod
@@ -552,16 +553,17 @@ def fused_bwd(spec, config, state0, obj_tx, prim, glass, records, masks, d_recor
     inputs), given the cotangents of its records (G, 15, n) and final state
     (13, n).  CUDA tensors launch the kernel (counted in
     ``fused_bwd.launches``); CPU tensors run :func:`fused_bwd_plain`."""
-    if state0.device.type == "cpu":
-        return fused_bwd_plain(
-            spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate
-        )
-    _device_check(state0)
-    _check(spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate)
-    out = _launch(spec, config, state0, obj_tx, prim, glass, records, masks, d_records,
-                  d_fstate, None, None)
-    fused_bwd.launches += 1
-    return out
+    with tracing.span("ops.fused_bwd"):
+        if state0.device.type == "cpu":
+            return fused_bwd_plain(
+                spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate
+            )
+        _device_check(state0)
+        _check(spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate)
+        out = _launch(spec, config, state0, obj_tx, prim, glass, records, masks, d_records,
+                      d_fstate, None, None)
+        fused_bwd.launches += 1
+        return out
 
 
 fused_bwd.launches = 0
@@ -573,16 +575,17 @@ def fused_bwd_loss(spec, config, state0, obj_tx, prim, glass, records, masks, sc
     (``plan.row``), and a zero final-state cotangent.  CUDA tensors launch
     the kernel (counted in ``fused_bwd_loss.launches``); CPU tensors run
     :func:`fused_bwd_loss_plain`."""
-    if state0.device.type == "cpu":
-        return fused_bwd_loss_plain(
-            spec, config, state0, obj_tx, prim, glass, records, masks, scal, plan
-        )
-    _device_check(state0)
-    _check(spec, config, state0, obj_tx, prim, glass, records, masks, scal=scal)
-    out = _launch(spec, config, state0, obj_tx, prim, glass, records, masks, None, None,
-                  plan, scal)
-    fused_bwd_loss.launches += 1
-    return out
+    with tracing.span("ops.fused_bwd_loss"):
+        if state0.device.type == "cpu":
+            return fused_bwd_loss_plain(
+                spec, config, state0, obj_tx, prim, glass, records, masks, scal, plan
+            )
+        _device_check(state0)
+        _check(spec, config, state0, obj_tx, prim, glass, records, masks, scal=scal)
+        out = _launch(spec, config, state0, obj_tx, prim, glass, records, masks, None, None,
+                      plan, scal)
+        fused_bwd_loss.launches += 1
+        return out
 
 
 fused_bwd_loss.launches = 0
@@ -603,7 +606,8 @@ def _d_world(world, d_objtx):
 
 
 def _obj_tx(world, n_leaves):
-    return affine_inverse(world).reshape(n_leaves, 16).contiguous()
+    with tracing.span("ops.tables"):
+        return affine_inverse(world).reshape(n_leaves, 16).contiguous()
 
 
 class _FusedLoss(torch.autograd.Function):
@@ -915,41 +919,43 @@ def staged_tail(spec, config, state0, rec, mask, pmask, fold5, glass, carry_bar,
     generation g (``generations_ran``) passes ``carry_bar`` through.  CUDA
     tensors launch the kernel (``staged_tail.launches``); CPU tensors run
     :func:`staged_tail_plain`."""
-    if state0.device.type == "cpu":
-        return staged_tail_plain(spec, config, state0, rec, mask, pmask, fold5, glass, carry_bar,
-                                 d_rec, scal, plan)
-    _device_check(state0)
-    _check_rows([("rec", rec, 15), ("mask", mask, 0), ("pmask", pmask, 0), ("fold5", fold5, 5),
-                 ("carry_bar", carry_bar, 11), ("d_rec", d_rec, 15)], state0)
-    if plan is not None and (scal.ndim != 1 or scal.shape[0] > MAX_SCALARS):
-        raise ValueError(f"the scalar row must be 1-D with at most {MAX_SCALARS} values")
-    lib = _wide_library()
-    n, m = state0.shape[1], glass.shape[0]
-    kw = dict(dtype=state0.dtype, device=state0.device)
-    buf = torch.empty((10, n), **kw)
-    dcarry = torch.empty((11, n), **kw)
-    d_glass = torch.empty((m, matl.N_GLASS_COEFFS), **kw)
-    blocks = -(-n // lib.pyrayt_staged_block_threads())
-    partials = torch.empty((max(1, m * matl.N_GLASS_COEFFS), blocks), dtype=torch.float64,
-                           device=state0.device)
-    program = ft.device_wide_program(spec, state0.device)
-    fn = lib.pyrayt_staged_tail_f32 if state0.dtype == torch.float32 else lib.pyrayt_staged_tail_f64
-    with torch.cuda.device(state0.device):
-        err = fn(
-            state0.data_ptr(), n, rec.data_ptr(), mask.data_ptr(),
-            pmask.data_ptr() if pmask is not None else None, fold5.data_ptr(), glass.data_ptr(),
-            program.data_ptr(), program.numel(), m,
-            d_rec.data_ptr() if plan is None else None, -1 if plan is None else plan.kind,
-            scal.data_ptr() if plan is not None else None, 0 if plan is None else scal.shape[0],
-            carry_bar.data_ptr(),
-            config.ray_offset, config.world_index, config.intensity_threshold,
-            int(config.apply_intensity_threshold),
-            buf.data_ptr(), dcarry.data_ptr(), partials.data_ptr(), d_glass.data_ptr(),
-            torch.cuda.current_stream(state0.device).cuda_stream,
-        )
-    _raise_on(lib, err, "staged_tail")
-    staged_tail.launches += 1
-    return buf, dcarry, d_glass
+    with tracing.span("ops.staged_tail"):
+        if state0.device.type == "cpu":
+            return staged_tail_plain(spec, config, state0, rec, mask, pmask, fold5, glass,
+                                     carry_bar, d_rec, scal, plan)
+        _device_check(state0)
+        _check_rows([("rec", rec, 15), ("mask", mask, 0), ("pmask", pmask, 0), ("fold5", fold5, 5),
+                     ("carry_bar", carry_bar, 11), ("d_rec", d_rec, 15)], state0)
+        if plan is not None and (scal.ndim != 1 or scal.shape[0] > MAX_SCALARS):
+            raise ValueError(f"the scalar row must be 1-D with at most {MAX_SCALARS} values")
+        lib = _wide_library()
+        n, m = state0.shape[1], glass.shape[0]
+        kw = dict(dtype=state0.dtype, device=state0.device)
+        buf = torch.empty((10, n), **kw)
+        dcarry = torch.empty((11, n), **kw)
+        d_glass = torch.empty((m, matl.N_GLASS_COEFFS), **kw)
+        blocks = -(-n // lib.pyrayt_staged_block_threads())
+        partials = torch.empty((max(1, m * matl.N_GLASS_COEFFS), blocks), dtype=torch.float64,
+                               device=state0.device)
+        program = ft.device_wide_program(spec, state0.device)
+        fn = (lib.pyrayt_staged_tail_f32 if state0.dtype == torch.float32
+              else lib.pyrayt_staged_tail_f64)
+        with torch.cuda.device(state0.device):
+            err = fn(
+                state0.data_ptr(), n, rec.data_ptr(), mask.data_ptr(),
+                pmask.data_ptr() if pmask is not None else None, fold5.data_ptr(), glass.data_ptr(),
+                program.data_ptr(), program.numel(), m,
+                d_rec.data_ptr() if plan is None else None, -1 if plan is None else plan.kind,
+                scal.data_ptr() if plan is not None else None, 0 if plan is None else scal.shape[0],
+                carry_bar.data_ptr(),
+                config.ray_offset, config.world_index, config.intensity_threshold,
+                int(config.apply_intensity_threshold),
+                buf.data_ptr(), dcarry.data_ptr(), partials.data_ptr(), d_glass.data_ptr(),
+                torch.cuda.current_stream(state0.device).cuda_stream,
+            )
+        _raise_on(lib, err, "staged_tail")
+        staged_tail.launches += 1
+        return buf, dcarry, d_glass
 
 
 staged_tail.launches = 0
@@ -1011,14 +1017,15 @@ def staged_group(spec, group_index, buf, win, obj_tx, prim, slots):
     group's slots are nonzero) and the cotangents of ``buf[0:6]`` (p3,
     v3).  CUDA tensors launch the kernel (``staged_group.launches``); CPU
     tensors run :func:`staged_group_plain`."""
-    if buf.device.type == "cpu":
-        return staged_group_plain(spec, group_index, buf, win, obj_tx, prim, slots)
-    _device_check(buf)
-    info = _group_entry(spec, group_index)
-    reduce_slots = slots[info["off"]:info["off"] + info["T"] * info["L"]]
-    out = _fold_launch(spec, group_index, buf, win, obj_tx, prim, slots, reduce_slots)
-    staged_group.launches += 1
-    return out
+    with tracing.span("ops.staged_group"):
+        if buf.device.type == "cpu":
+            return staged_group_plain(spec, group_index, buf, win, obj_tx, prim, slots)
+        _device_check(buf)
+        info = _group_entry(spec, group_index)
+        reduce_slots = slots[info["off"]:info["off"] + info["T"] * info["L"]]
+        out = _fold_launch(spec, group_index, buf, win, obj_tx, prim, slots, reduce_slots)
+        staged_group.launches += 1
+        return out
 
 
 staged_group.launches = 0
@@ -1036,12 +1043,13 @@ def staged_singles(spec, buf, win, obj_tx, prim, slots):
     codes and slots; at most 32 leaves).  CUDA tensors launch the kernel
     (``staged_singles.launches``); CPU tensors run
     :func:`staged_singles_plain`."""
-    if buf.device.type == "cpu":
-        return staged_singles_plain(spec, buf, win, obj_tx, prim)
-    _device_check(buf)
-    out = _fold_launch(spec, -1, buf, win, obj_tx, prim, slots, _single_slots(spec, buf.device))
-    staged_singles.launches += 1
-    return out
+    with tracing.span("ops.staged_singles"):
+        if buf.device.type == "cpu":
+            return staged_singles_plain(spec, buf, win, obj_tx, prim)
+        _device_check(buf)
+        out = _fold_launch(spec, -1, buf, win, obj_tx, prim, slots, _single_slots(spec, buf.device))
+        staged_singles.launches += 1
+        return out
 
 
 staged_singles.launches = 0
@@ -1098,16 +1106,17 @@ def row_reduce(keys, vals, reduce_slots, n_rows, n_slots=None):
     launch the kernels (counted in ``row_reduce.launches``); CPU tensors
     run :func:`row_reduce_plain`.  The main path reaches the kernels
     through K6, K7 and K8, not through this wrapper."""
-    if vals.device.type == "cpu":
-        return row_reduce_plain(keys, vals, reduce_slots, n_rows, n_slots)
-    _device_check(vals)
-    n_slots = n_rows if n_slots is None else n_slots
-    _check_reduce(keys, vals, reduce_slots, n_rows, n_slots)
-    if vals.data_ptr() % (2 * vals.element_size()):
-        raise ValueError("vals must be aligned to two of its elements")
-    out = _row_reduce_launch(keys, vals, reduce_slots, n_rows, n_slots)
-    row_reduce.launches += 1
-    return out
+    with tracing.span("ops.row_reduce"):
+        if vals.device.type == "cpu":
+            return row_reduce_plain(keys, vals, reduce_slots, n_rows, n_slots)
+        _device_check(vals)
+        n_slots = n_rows if n_slots is None else n_slots
+        _check_reduce(keys, vals, reduce_slots, n_rows, n_slots)
+        if vals.data_ptr() % (2 * vals.element_size()):
+            raise ValueError("vals must be aligned to two of its elements")
+        out = _row_reduce_launch(keys, vals, reduce_slots, n_rows, n_slots)
+        row_reduce.launches += 1
+        return out
 
 
 row_reduce.launches = 0
@@ -1337,16 +1346,17 @@ def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull,
     it.  The same gradients as :func:`staged_bwd`, up to rounding.  CUDA
     tensors launch the kernel (counted in ``fused_bwd_wide.launches``); CPU
     tensors run :func:`fused_bwd_wide_plain`."""
-    if state0.device.type == "cpu":
-        return fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb,
-                                    cull, records, masks, d_records, d_fstate, scal, plan)
-    _device_check(state0)
-    _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
-                      d_records, d_fstate, scal, plan)
-    out = _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, records,
-                             masks, d_records, d_fstate, scal, plan)
-    fused_bwd_wide.launches += 1
-    return out
+    with tracing.span("ops.fused_bwd_wide"):
+        if state0.device.type == "cpu":
+            return fused_bwd_wide_plain(spec, config, state0, obj_tx, prim, glass, slots, aabb,
+                                        cull, records, masks, d_records, d_fstate, scal, plan)
+        _device_check(state0)
+        _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records,
+                          masks, d_records, d_fstate, scal, plan)
+        out = _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, records,
+                                 masks, d_records, d_fstate, scal, plan)
+        fused_bwd_wide.launches += 1
+        return out
 
 
 fused_bwd_wide.launches = 0
@@ -1453,14 +1463,15 @@ class _WideFusedTrace(torch.autograd.Function):
 
 
 def _function_inputs(params, rays):
-    dtype = rays.dtype
-    state0 = torch.cat((rays.positions, rays.directions, rays.metadata)).contiguous()
-    return (
-        params["world"].to(dtype),
-        params["prim"].to(dtype).contiguous(),
-        params["glass"].to(dtype).contiguous(),
-        state0,
-    )
+    with tracing.span("ops.tables"):
+        dtype = rays.dtype
+        state0 = torch.cat((rays.positions, rays.directions, rays.metadata)).contiguous()
+        return (
+            params["world"].to(dtype),
+            params["prim"].to(dtype).contiguous(),
+            params["glass"].to(dtype).contiguous(),
+            state0,
+        )
 
 
 def _check_scene(spec: SceneSpec, config: TraceConfig) -> str:

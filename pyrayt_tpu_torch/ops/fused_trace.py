@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch import materials as matl
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.core import primitives as prim_mod
 from pyrayt_tpu_torch.core.intervals import tree_supports_intervals
@@ -513,8 +514,9 @@ def wide_runtime_tables(spec: SceneSpec, params, dtype):
     ``jnp.argsort`` does), and chunk boxes are min/maxes over the sorted
     order.  Not differentiable: the tables only order and skip work.
     """
-    slots, aabb, _ = _wide_box_pass(spec, params, dtype)
-    return slots, aabb
+    with tracing.span("ops.tables"):
+        slots, aabb, _ = _wide_box_pass(spec, params, dtype)
+        return slots, aabb
 
 
 def _pad_box(box):
@@ -531,12 +533,13 @@ def wide_cull_tables(spec: SceneSpec, params, dtype):
     rows start at ``cull_offsets(spec)[g]`` (the wide program's group
     field 6): its slope ``[s_x, s_y, s_z, 0, 0, 0]``, its chunk boxes, its
     tree boxes, each box padded as ``_box_hit`` pads (64 ulps)."""
-    slots, aabb, tight = _wide_box_pass(spec, params, dtype)
-    rows = []
-    for tree_box, chunk_box, slope in tight:
-        rows += [torch.cat((slope, slope.new_zeros(3)))[None], _pad_box(chunk_box),
-                 _pad_box(tree_box)]
-    return slots, aabb, torch.cat(rows).contiguous()
+    with tracing.span("ops.tables"):
+        slots, aabb, tight = _wide_box_pass(spec, params, dtype)
+        rows = []
+        for tree_box, chunk_box, slope in tight:
+            rows += [torch.cat((slope, slope.new_zeros(3)))[None], _pad_box(chunk_box),
+                     _pad_box(tree_box)]
+        return slots, aabb, torch.cat(rows).contiguous()
 
 
 @lru_cache(maxsize=64)
@@ -838,39 +841,41 @@ def fused_trace(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass
     ``fused_trace.launches``; on CPU tensors it runs
     :func:`fused_trace_plain`.
     """
-    if state.device.type == "cpu":
-        return fused_trace_plain(spec, config, state, obj_tx, prim, glass)
-    if state.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
-    check_inputs(spec, state, obj_tx, prim, glass)
-    program = device_program(spec, state.device)
-    n = state.shape[1]
-    g = config.generation_limit
-    records = torch.empty((g, engine.N_RECORD_COLS, n), dtype=state.dtype, device=state.device)
-    masks = torch.empty((g, n), dtype=torch.bool, device=state.device)
-    fstate = torch.empty_like(state)
-    if n == 0:
+    with tracing.span("ops.fused_trace"):
+        if state.device.type == "cpu":
+            return fused_trace_plain(spec, config, state, obj_tx, prim, glass)
+        if state.device.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
+        check_inputs(spec, state, obj_tx, prim, glass)
+        program = device_program(spec, state.device)
+        n = state.shape[1]
+        g = config.generation_limit
+        records = torch.empty((g, engine.N_RECORD_COLS, n), dtype=state.dtype, device=state.device)
+        masks = torch.empty((g, n), dtype=torch.bool, device=state.device)
+        fstate = torch.empty_like(state)
+        if n == 0:
+            return records, masks, fstate
+        lib = _library()
+        launch = (
+            lib.pyrayt_fused_trace_f32 if state.dtype == torch.float32
+            else lib.pyrayt_fused_trace_f64
+        )
+        with torch.cuda.device(state.device):
+            err = launch(
+                state.data_ptr(), n, g,
+                obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
+                program.numel(), spec.n_leaves, glass.shape[0],
+                records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
+                config.ray_offset, config.world_index, config.intensity_threshold,
+                int(config.apply_intensity_threshold),
+                torch.cuda.current_stream(state.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"fused_trace kernel launch failed: {lib.pyrayt_error_string(err).decode()}"
+            )
+        fused_trace.launches += 1
         return records, masks, fstate
-    lib = _library()
-    launch = (
-        lib.pyrayt_fused_trace_f32 if state.dtype == torch.float32 else lib.pyrayt_fused_trace_f64
-    )
-    with torch.cuda.device(state.device):
-        err = launch(
-            state.data_ptr(), n, g,
-            obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
-            program.numel(), spec.n_leaves, glass.shape[0],
-            records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
-            config.ray_offset, config.world_index, config.intensity_threshold,
-            int(config.apply_intensity_threshold),
-            torch.cuda.current_stream(state.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_trace kernel launch failed: {lib.pyrayt_error_string(err).decode()}"
-        )
-    fused_trace.launches += 1
-    return records, masks, fstate
 
 
 fused_trace.launches = 0
@@ -928,12 +933,13 @@ def kernel_inputs(params, rays: RaySet):
     """The kernel's inputs from scene params and rays, in the rays' dtype:
     ``(state (13, n), obj_tx (S, 16), prim (S, 6), glass (M, 7))``, each
     contiguous.  ``obj_tx`` is the inverse of each leaf's world transform."""
-    dtype = rays.dtype
-    state = torch.cat((rays.positions, rays.directions, rays.metadata))
-    obj_tx = affine_inverse(params["world"]).reshape(-1, 16)
-    return tuple(
-        t.to(dtype).contiguous() for t in (state, obj_tx, params["prim"], params["glass"])
-    )
+    with tracing.span("ops.tables"):
+        dtype = rays.dtype
+        state = torch.cat((rays.positions, rays.directions, rays.metadata))
+        obj_tx = affine_inverse(params["world"]).reshape(-1, 16)
+        return tuple(
+            t.to(dtype).contiguous() for t in (state, obj_tx, params["prim"], params["glass"])
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -1224,46 +1230,48 @@ def fused_trace_wide(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, 
     required) and counts the launch in ``fused_trace_wide.launches``; on
     CPU tensors it runs :func:`fused_trace_wide_plain`.
     """
-    if state.device.type == "cpu":
-        return fused_trace_wide_plain(spec, config, state, obj_tx, prim, glass, slots, aabb,
-                                      cull, save_fold)
-    if state.device.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
-    if cull is None:
-        raise ValueError("the kernel needs the cull table of wide_cull_tables")
-    _check_wide(spec, state, obj_tx, prim, glass, slots, aabb, cull)
-    program = device_wide_program(spec, state.device)
-    n, g = state.shape[1], config.generation_limit
-    kw = dict(dtype=state.dtype, device=state.device)
-    records = torch.empty((g, engine.N_RECORD_COLS, n), **kw)
-    masks = torch.empty((g, n), dtype=torch.bool, device=state.device)
-    fstate = torch.empty_like(state)
-    fold5 = torch.empty((g, 5, n), **kw) if save_fold else None
-    win = torch.empty((g, n), dtype=torch.int32, device=state.device) if save_fold else None
-    outs = (records, masks, fstate) + ((fold5, win) if save_fold else ())
-    if n == 0:
+    with tracing.span("ops.fused_trace_wide"):
+        if state.device.type == "cpu":
+            return fused_trace_wide_plain(spec, config, state, obj_tx, prim, glass, slots, aabb,
+                                          cull, save_fold)
+        if state.device.type != "cuda":
+            raise ValueError(f"the kernel runs on CUDA tensors, got {state.device}")
+        if cull is None:
+            raise ValueError("the kernel needs the cull table of wide_cull_tables")
+        _check_wide(spec, state, obj_tx, prim, glass, slots, aabb, cull)
+        program = device_wide_program(spec, state.device)
+        n, g = state.shape[1], config.generation_limit
+        kw = dict(dtype=state.dtype, device=state.device)
+        records = torch.empty((g, engine.N_RECORD_COLS, n), **kw)
+        masks = torch.empty((g, n), dtype=torch.bool, device=state.device)
+        fstate = torch.empty_like(state)
+        fold5 = torch.empty((g, 5, n), **kw) if save_fold else None
+        win = torch.empty((g, n), dtype=torch.int32, device=state.device) if save_fold else None
+        outs = (records, masks, fstate) + ((fold5, win) if save_fold else ())
+        if n == 0:
+            return outs
+        lib = _wide_library()
+        launch = (lib.pyrayt_fused_trace_wide_f32 if state.dtype == torch.float32
+                  else lib.pyrayt_fused_trace_wide_f64)
+        with torch.cuda.device(state.device):
+            err = launch(
+                state.data_ptr(), n, g,
+                obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
+                *wide_program_sizes(spec), glass.shape[0],
+                slots.data_ptr(), cull.data_ptr(),
+                records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
+                fold5.data_ptr() if save_fold else None, win.data_ptr() if save_fold else None,
+                config.ray_offset, config.world_index, config.intensity_threshold,
+                int(config.apply_intensity_threshold),
+                torch.cuda.current_stream(state.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                "fused_trace_wide kernel launch failed: "
+                f"{lib.pyrayt_wide_error_string(err).decode()}"
+            )
+        fused_trace_wide.launches += 1
         return outs
-    lib = _wide_library()
-    launch = (lib.pyrayt_fused_trace_wide_f32 if state.dtype == torch.float32
-              else lib.pyrayt_fused_trace_wide_f64)
-    with torch.cuda.device(state.device):
-        err = launch(
-            state.data_ptr(), n, g,
-            obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
-            *wide_program_sizes(spec), glass.shape[0],
-            slots.data_ptr(), cull.data_ptr(),
-            records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
-            fold5.data_ptr() if save_fold else None, win.data_ptr() if save_fold else None,
-            config.ray_offset, config.world_index, config.intensity_threshold,
-            int(config.apply_intensity_threshold),
-            torch.cuda.current_stream(state.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_trace_wide kernel launch failed: {lib.pyrayt_wide_error_string(err).decode()}"
-        )
-    fused_trace_wide.launches += 1
-    return outs
 
 
 fused_trace_wide.launches = 0

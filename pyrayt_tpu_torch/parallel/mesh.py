@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.config import default_device
 from pyrayt_tpu_torch.tracer.rayset import RaySet
 
@@ -95,22 +96,24 @@ class Mesh:
         mesh, on a copy."""
         if not self.joined:
             return t
-        t = t.clone()
-        dist.all_reduce(t, op)
-        return t
+        with tracing.span("parallel.all_reduce"):
+            t = t.clone()
+            dist.all_reduce(t, op)
+            return t
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """Every rank's block concatenated in rank order along the last
         axis, bit for bit."""
         if not self.joined:
             return local
-        k = local.shape[-1]
-        full = torch.zeros(local.shape[:-1] + (self.size * k,), dtype=local.dtype,
-                           device=local.device)
-        full[..., self.rank * k:(self.rank + 1) * k] = local
-        bits = full.view(_BITS[full.element_size()])
-        dist.all_reduce(bits, dist.ReduceOp.SUM)
-        return full
+        with tracing.span("parallel.gather"):
+            k = local.shape[-1]
+            full = torch.zeros(local.shape[:-1] + (self.size * k,), dtype=local.dtype,
+                               device=local.device)
+            full[..., self.rank * k:(self.rank + 1) * k] = local
+            bits = full.view(_BITS[full.element_size()])
+            dist.all_reduce(bits, dist.ReduceOp.SUM)
+            return full
 
     def ordered_sum(self, tensors):
         """Each tensor summed over the ranks in rank order: one exact

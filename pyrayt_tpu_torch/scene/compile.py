@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pyrayt_tpu_torch import materials as matl
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.config import default_device
 from pyrayt_tpu_torch.core import primitives as prim_mod
 from pyrayt_tpu_torch.core.csg import Operation
@@ -148,7 +149,11 @@ def compile_scene(
     ``require_materials=False`` maps material-less surfaces to the absorber
     so geometry-only scenes still compile.
     """
-    device = default_device(device)
+    with tracing.span("scene.compile"):
+        return _compile(components, require_materials, default_device(device), dtype)
+
+
+def _compile(components, require_materials, device, dtype) -> CompiledScene:
     components = _flatten_components(
         components if hasattr(components, "__iter__") else (components,)
     )

@@ -12,6 +12,8 @@ from __future__ import annotations
 import pandas as pd
 import torch
 
+from pyrayt_tpu_torch import tracing
+
 __all__ = ["FRAME_COLUMNS", "records_to_dataframe", "live_generations"]
 
 FRAME_COLUMNS = (
@@ -46,10 +48,14 @@ def records_to_dataframe(records, record_mask, compact=None) -> pd.DataFrame:
     """
     if compact is None:
         compact = True
-    if compact:
-        g = max(live_generations(record_mask), 1)
-        records, record_mask = records[:g], record_mask[:g]
-    records = records.to(torch.float32).cpu().numpy()  # (g, 15, n)
-    record_mask = record_mask.cpu().numpy()  # (g, n)
-    rows = records.transpose(0, 2, 1)[record_mask]
-    return pd.DataFrame(rows, columns=list(FRAME_COLUMNS), dtype="float32")
+    with tracing.span("frame"):
+        # the host waits for the trace at the first read, then copies
+        with tracing.span("frame.copy"):
+            if compact:
+                g = max(live_generations(record_mask), 1)
+                records, record_mask = records[:g], record_mask[:g]
+            records = records.to(torch.float32).cpu().numpy()  # (g, 15, n)
+            record_mask = record_mask.cpu().numpy()  # (g, n)
+        with tracing.span("frame.rows"):
+            rows = records.transpose(0, 2, 1)[record_mask]
+            return pd.DataFrame(rows, columns=list(FRAME_COLUMNS), dtype="float32")

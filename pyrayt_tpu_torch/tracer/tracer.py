@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from pyrayt_tpu_torch import tracing
 from pyrayt_tpu_torch.config import TraceConfig, default_device
 from pyrayt_tpu_torch.core.operations import affine_inverse
 from pyrayt_tpu_torch.scene._backend import as_tensor_like
@@ -135,32 +136,36 @@ class RayTracer:
         return compile_scene(self._components, device=self._device, dtype=self._dtype)
 
     def _initial_rays(self):
-        ray_set = concatenate(
-            [
-                source.generate_rays(self._rays_per_source, device=self._device, dtype=self._dtype)
-                for source in self._sources
-            ]
-        )
-        # unique ids across sources
-        return ray_set.replace(
-            id=torch.arange(ray_set.n_rays, dtype=self._dtype, device=self._device)
-        )
+        with tracing.span("sources"):
+            ray_set = concatenate(
+                [
+                    source.generate_rays(self._rays_per_source, device=self._device,
+                                         dtype=self._dtype)
+                    for source in self._sources
+                ]
+            )
+            # unique ids across sources
+            return ray_set.replace(
+                id=torch.arange(ray_set.n_rays, dtype=self._dtype, device=self._device)
+            )
 
     # -- tracing -------------------------------------------------------------
 
     def trace(self):
         """Run the simulation; returns the results DataFrame."""
-        result = self.trace_device()
-        self._frame_data = records_to_dataframe(result.records, result.record_mask)
-        return self._frame_data
+        with tracing.span("trace"):
+            result = self.trace_device()
+            self._frame_data = records_to_dataframe(result.records, result.record_mask)
+            return self._frame_data
 
     def trace_device(self, fixed_loop: bool = False) -> engine.TraceResult:
         """Run the trace and keep the results on the device."""
-        self._result = engine.trace_rays(
-            self._scene(), self._initial_rays(), self._config(fixed_loop)
-        )
-        self._simulation_complete = True
-        return self._result
+        with tracing.span("trace_device"):
+            self._result = engine.trace_rays(
+                self._scene(), self._initial_rays(), self._config(fixed_loop)
+            )
+            self._simulation_complete = True
+            return self._result
 
     def trace_fn(self, fixed_loop: bool = False):
         """``(plain_fn, params, initial_rays)`` of the plain engine."""
