@@ -2,9 +2,17 @@
 
 Counterpart of ``pyrayt_tpu.tracer.frame``.  The ``(G, 15, n)`` record
 buffer and its ``(G, n)`` mask become the 15-column float32 frame: rows
-ordered generation by generation, and within a generation by ray.  The
-compact default slices the live generations and casts to float32 on the
-device before the copy to the host, so the copy moves the fewest bytes.
+ordered generation by generation, and within a generation by ray.
+
+The compact default selects the live rows where the records are.
+``nonzero`` of the flat mask (the one wait for the device) gives the
+slots in frame order, one gather reads their 15 values into a fresh
+``(15, rows)`` buffer and casts it to float32, and one copy moves only
+those bytes to the host (span ``frame.copy``).  pandas then takes that
+column-major buffer as its block without copying it (span
+``frame.rows``).  Each frame owns its buffer: nothing else holds it.
+``compact=False`` copies the whole buffer and selects on the host, the
+plain twin that the tests hold the default against.
 """
 
 from __future__ import annotations
@@ -43,8 +51,10 @@ def live_generations(record_mask) -> int:
 def records_to_dataframe(records, record_mask, compact=None) -> pd.DataFrame:
     """Build the results frame from the record buffer.
 
-    ``compact=None`` resolves to the sliced float32 copy; ``False`` copies
-    the whole buffer and selects on the host.
+    ``compact=None`` resolves to the selection on the records' device,
+    counted in ``records_to_dataframe.rows`` (rows selected) and
+    ``records_to_dataframe.slots`` (the ``G * n`` slots they were selected
+    from); ``False`` copies the whole buffer and selects on the host.
     """
     if compact is None:
         compact = True
@@ -52,10 +62,30 @@ def records_to_dataframe(records, record_mask, compact=None) -> pd.DataFrame:
         # the host waits for the trace at the first read, then copies
         with tracing.span("frame.copy"):
             if compact:
-                g = max(live_generations(record_mask), 1)
-                records, record_mask = records[:g], record_mask[:g]
-            records = records.to(torch.float32).cpu().numpy()  # (g, 15, n)
-            record_mask = record_mask.cpu().numpy()  # (g, n)
+                columns = _live_columns(records, record_mask).cpu().numpy()  # (15, rows)
+            else:
+                records = records.to(torch.float32).cpu().numpy()  # (G, 15, n)
+                record_mask = record_mask.cpu().numpy()  # (G, n)
         with tracing.span("frame.rows"):
+            if compact:
+                # the transpose is pandas' column-major block itself
+                return pd.DataFrame(columns.T, columns=list(FRAME_COLUMNS), copy=False)
             rows = records.transpose(0, 2, 1)[record_mask]
             return pd.DataFrame(rows, columns=list(FRAME_COLUMNS), dtype="float32")
+
+
+def _live_columns(records, record_mask):
+    """The live slots' records as a fresh float32 ``(15, rows)`` tensor on
+    the records' device, rows in frame order."""
+    g, n = record_mask.shape
+    slots = torch.nonzero(record_mask.reshape(-1)).squeeze(1)  # ascending: frame order
+    # two index tensors of one shape: CUDA's indexing would make
+    # broadcast (15, rows) copies of indices whose strides differ
+    columns = records.transpose(0, 1)[:, slots // n, slots % n].to(torch.float32)
+    records_to_dataframe.rows += slots.numel()
+    records_to_dataframe.slots += g * n
+    return columns
+
+
+records_to_dataframe.rows = 0
+records_to_dataframe.slots = 0

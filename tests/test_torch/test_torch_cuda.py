@@ -809,3 +809,35 @@ def test_two_gloo_ranks_on_the_card_trace_like_one_launch(cuda, tmp_path):
             kernel = "fused_trace" if key.startswith("narrow") else "fused_trace_wide"
             assert case["launched"][kernel] == 1, (key, case["launched"])
             assert case["equal"] and case["records"] > 0, key
+
+
+# ---------------------------------------------------------------------------
+# the results frame selected on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trace_frame_selected_on_the_card(cuda, dtype):
+    """trace() of a 5x5 microlens array on the card (K2) selects the frame's
+    rows there; the frame equals the host selection of ``compact=False`` on
+    the same TraceResult, bit for bit."""
+    import pandas as pd
+
+    from pyrayt_tpu_torch import RayTracer
+    from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
+
+    with TORCH_NS.fresh_ids():
+        parts = TORCH_NS.comp.microlens_array([2.0 + 0.01 * k for k in range(25)], 0.25, 5, 5,
+                                              1.0)
+        parts.append(TORCH_NS.comp.baffle((10.0, 10.0)).move_x(4.0))
+        source = TORCH_NS.comp.GridOfRays(4.5, 4.5).move_x(-1.0)
+    tracer = RayTracer(source, parts, rays_per_source=4096, generation_limit=4, device=cuda,
+                       dtype=dtype)
+    launches, rows = ft.fused_trace_wide.launches, records_to_dataframe.rows
+    frame = tracer.trace()
+    assert ft.fused_trace_wide.launches - launches == 1
+    result = tracer._result
+    assert records_to_dataframe.rows - rows == len(frame) == int(result.record_mask.sum()) > 4096
+    naive = records_to_dataframe(result.records, result.record_mask, compact=False)
+    pd.testing.assert_frame_equal(frame, naive, check_exact=True)
+    assert all(frame[c].to_numpy().flags.c_contiguous for c in frame.columns)

@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -15,7 +16,7 @@ from pyrayt_tpu.tracer import engine as j_engine
 from pyrayt_tpu_torch import interop
 from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.tracer import engine
-from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
+from pyrayt_tpu_torch.tracer.frame import FRAME_COLUMNS, records_to_dataframe
 from pyrayt_tpu_torch.tracer.rayset import RaySet
 
 TOL = dict(rtol=1e-9, atol=1e-9)
@@ -105,6 +106,40 @@ def test_ray_tracer_api():
     tracer.set_config(TraceConfig(use_fused=True))
     with pytest.raises(ValueError, match="CUDA tensors"):
         tracer.trace()
+
+
+FRAME_MASKS = {
+    "all_live": lambda rng, shape: torch.ones(shape, dtype=torch.bool),
+    "holes": lambda rng, shape: torch.rand(shape, generator=rng) < 0.6,
+    "empty_middle": lambda rng, shape: (torch.rand(shape, generator=rng) < 0.6)
+    * (torch.arange(shape[0]) != 1)[:, None],
+    "all_empty": lambda rng, shape: torch.zeros(shape, dtype=torch.bool),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mask", sorted(FRAME_MASKS))
+def test_frame_selected_where_the_records_are(mask, dtype):
+    """The default frame, selected on the records' device, equals the host
+    selection of ``compact=False`` bit for bit, has contiguous columns,
+    owns its buffer, and is counted in ``records_to_dataframe.rows/.slots``."""
+    rng = torch.Generator().manual_seed(15)
+    records = torch.randn((4, 15, 37), generator=rng, dtype=dtype)
+    record_mask = FRAME_MASKS[mask](rng, (4, 37))
+    rows, slots = records_to_dataframe.rows, records_to_dataframe.slots
+    frame = records_to_dataframe(records, record_mask)
+    assert records_to_dataframe.rows - rows == len(frame) == int(record_mask.sum())
+    assert records_to_dataframe.slots - slots == 4 * 37
+    naive = records_to_dataframe(records, record_mask, compact=False)
+    pd.testing.assert_frame_equal(frame, naive, check_exact=True)
+    assert list(frame.columns) == list(FRAME_COLUMNS)
+    assert (frame.dtypes == np.float32).all()
+    assert isinstance(frame.index, pd.RangeIndex)
+    assert all(frame[c].to_numpy().flags.c_contiguous for c in frame.columns)
+    kept = frame.to_numpy().copy()
+    records.add_(1.0)
+    assert len(records_to_dataframe(records, record_mask)) == len(kept)
+    np.testing.assert_array_equal(frame.to_numpy(), kept)
 
 
 def test_ray_tracer_defaults_to_the_card(monkeypatch):
