@@ -93,6 +93,7 @@ __all__ = [
     "row_reduce_plain",
     "build_fused_value_and_grad_fn",
     "build_fused_vjp_trace_fn",
+    "fused_plan_value",
 ]
 
 # record rows (engine record layout)
@@ -119,18 +120,31 @@ class LossPlan:
     trace; ``value(scal)`` is the loss; the kernel's scalar row is
     ``scal ++ [g] ++ tail`` (``g`` the upstream cotangent, ``tail`` the
     descriptor's constants); ``drec(rec (15, n), mask (n,), row)`` is the
-    record cotangent of one generation, the formulas the kernel runs."""
+    record cotangent of one generation, the formulas the kernel runs.
+
+    The same scalars over rays held apart (the ranks of a sharded
+    objective): ``partials`` are rounds of float64 sums over rays, each
+    ``fn(records, masks, sums) -> (P,)`` given ``sums``, the totals of the
+    earlier rounds; sums of the same round add over any split of the rays.
+    ``finish(sums)`` turns every round's totals into ``scalars``' values
+    (float64)."""
 
     kind: int
     scalars: Callable
     value: Callable
     drec: Callable
     tail: Tuple[float, ...]
+    partials: Tuple[Callable, ...]
+    finish: Callable
 
     def row(self, scal, g):
         """The kernel's scalar row for upstream cotangent ``g``."""
         tail = torch.as_tensor(self.tail, dtype=scal.dtype, device=scal.device)
         return torch.cat((scal, g.reshape(1).to(scal.dtype), tail)).contiguous()
+
+
+def _sum64(x):
+    return torch.sum(x, dtype=torch.float64).reshape(1)
 
 
 def _rows(rec, filled):
@@ -166,8 +180,31 @@ def _rms_plan(loss) -> LossPlan:
             rec, {_R_Y1: coef * (rec[_R_Y1] - row[0]), _R_Z1: coef * (rec[_R_Z1] - row[1])}
         )
 
+    # the centroid first, then the squares about it: one round of
+    # [sum w, sum w y, sum w z, sum w (y^2 + z^2)] would cancel in float32
+    def centroid_sums(records, masks, sums):
+        del sums
+        w = (masks & (records[:, _R_SURF, :] == sid)).to(records.dtype)
+        return torch.cat((_sum64(w), _sum64(records[:, _R_Y1, :] * w),
+                          _sum64(records[:, _R_Z1, :] * w)))
+
+    def centroid(sums, dtype):
+        W = torch.clamp(sums[0], min=1.0)
+        return W, (sums[1] / W).to(dtype), (sums[2] / W).to(dtype)
+
+    def square_sums(records, masks, sums):
+        w = (masks & (records[:, _R_SURF, :] == sid)).to(records.dtype)
+        _, cy, cz = centroid(sums, records.dtype)
+        r2 = (records[:, _R_Y1, :] - cy) ** 2 + (records[:, _R_Z1, :] - cz) ** 2
+        return _sum64(r2 * w)
+
+    def finish(sums):
+        W, cy, cz = centroid(sums, sums.dtype)
+        return torch.stack([cy, cz, W, torch.sqrt(sums[3] / W)])
+
     # row: [cy, cz, W, L, g, surface_id]
-    return LossPlan(PLAN_RMS, scalars, lambda scal: scal[3], drec, (sid,))
+    return LossPlan(PLAN_RMS, scalars, lambda scal: scal[3], drec, (sid,),
+                    (centroid_sums, square_sums), finish)
 
 
 def _focus_plan(loss) -> LossPlan:
@@ -175,14 +212,24 @@ def _focus_plan(loss) -> LossPlan:
     target = float(loss.target_focus)
     min_tilt = float(loss.min_tilt)
 
-    def scalars(records, masks):
+    def terms(records, masks):
+        """Each ray's weight and squared focus error."""
         yt = records[:, _R_YT, :]
         tilted = torch.abs(yt) > min_tilt
         w = (masks & (records[:, _R_SURF, :] == sid) & tilted).to(records.dtype)
-        W = torch.clamp(torch.sum(w), min=1.0)
         safe_yt = torch.where(tilted, yt, 1.0)
         t = records[:, _R_X0, :] - records[:, _R_XT, :] * records[:, _R_Y0, :] / safe_yt
-        return torch.stack([W, torch.sum(w * (t - target) ** 2) / W])
+        return w, (t - target) ** 2
+
+    def scalars(records, masks):
+        w, e2 = terms(records, masks)
+        W = torch.clamp(torch.sum(w), min=1.0)
+        return torch.stack([W, torch.sum(w * e2) / W])
+
+    def sums(records, masks, done):
+        del done
+        w, e2 = terms(records, masks)
+        return torch.cat((_sum64(w), _sum64(w * e2)))
 
     def drec(rec, mask, row):
         yt = rec[_R_YT]
@@ -202,7 +249,14 @@ def _focus_plan(loss) -> LossPlan:
         )
 
     # row: [W, value, g, surface_id, min_tilt, target]
-    return LossPlan(PLAN_FOCUS, scalars, lambda scal: scal[1], drec, (sid, min_tilt, target))
+    return LossPlan(PLAN_FOCUS, scalars, lambda scal: scal[1], drec, (sid, min_tilt, target),
+                    (sums,), lambda s: _mean_finish(s, 1.0))
+
+
+def _mean_finish(sums, floor):
+    """[W, sum w e^2 / W] from [sum w, sum w e^2], W floored."""
+    W = torch.clamp(sums[0], min=floor)
+    return torch.stack([W, sums[1] / W])
 
 
 def _sprime(u):
@@ -226,14 +280,24 @@ def _soft_focus_plan(loss) -> LossPlan:
         wt = _m.smoothstep((torch.abs(yt) - t0) / (t1 - t0))
         return m, wy, wz, wt, torch.where(m, wy * wz, 0.0) * wt
 
-    def scalars(records, masks):
+    def terms(records, masks):
+        """Each ray's weight and squared focus error."""
         yt = records[:, _R_YT, :]
         surf, y1, z1 = records[:, _R_SURF, :], records[:, _R_Y1, :], records[:, _R_Z1, :]
         w = weights(surf, masks, y1, z1, yt)[4]
-        W = torch.clamp(torch.sum(w), min=1e-12)
         safe_yt = torch.where(torch.abs(yt) > t0, yt, t0)
         t = records[:, _R_X0, :] - records[:, _R_XT, :] * records[:, _R_Y0, :] / safe_yt
-        return torch.stack([W, torch.sum(w * (t - target) ** 2) / W])
+        return w, (t - target) ** 2
+
+    def scalars(records, masks):
+        w, e2 = terms(records, masks)
+        W = torch.clamp(torch.sum(w), min=1e-12)
+        return torch.stack([W, torch.sum(w * e2) / W])
+
+    def sums(records, masks, done):
+        del done
+        w, e2 = terms(records, masks)
+        return torch.cat((_sum64(w), _sum64(w * e2)))
 
     def drec(rec, mask, row):
         W, L, g = row[0], row[1], row[2]
@@ -265,7 +329,8 @@ def _soft_focus_plan(loss) -> LossPlan:
 
     # row: [W, value, g, surface_id, target, hy, hz, ramp, t0, t1]
     tail = (sid, target, hy, hz, ramp, t0, t1)
-    return LossPlan(PLAN_SOFT_FOCUS, scalars, lambda scal: scal[1], drec, tail)
+    return LossPlan(PLAN_SOFT_FOCUS, scalars, lambda scal: scal[1], drec, tail, (sums,),
+                    lambda s: _mean_finish(s, 1e-12))
 
 
 def loss_plan(loss):
@@ -1510,6 +1575,15 @@ def build_fused_value_and_grad_fn(spec: SceneSpec, materials, config: TraceConfi
         return function.apply(*_function_inputs(params, rays), spec, config, plan)
 
     return value
+
+
+def fused_plan_value(spec: SceneSpec, config: TraceConfig, plan: LossPlan, params, rays):
+    """The loss of ``plan`` on ``rays`` through the scene's kernels, as the
+    function of :func:`build_fused_value_and_grad_fn` computes it, for a
+    plan the caller made: a sharded objective's, whose ``scalars`` reduce
+    over every rank (``parallel.build_sharded_objective``)."""
+    function = _LOSS_FUNCTIONS[_check_scene(spec, config)]
+    return function.apply(*_function_inputs(params, rays), spec, config, plan)
 
 
 @lru_cache(maxsize=64)

@@ -33,6 +33,7 @@ from pyrayt_tpu_torch.tracer.rayset import RaySet
 __all__ = [
     "RAY_AXES",
     "Mesh",
+    "all_reduce",
     "default_mesh",
     "rayset_sharding",
     "shard_rayset",
@@ -44,6 +45,19 @@ RAY_AXES: Tuple[str, str] = ("hosts", "rays")
 
 # the integer type of each element width: an exact gather sums bit patterns
 _BITS = {8: torch.int64, 4: torch.int32, 1: torch.uint8}
+
+
+def all_reduce(t: torch.Tensor, op) -> None:
+    """``torch.distributed.all_reduce`` of ``t`` in place, counted: every
+    collective of a mesh runs here, and ``all_reduce.calls`` and
+    ``all_reduce.bytes`` (the buffers' bytes) add up since import."""
+    dist.all_reduce(t, op)
+    all_reduce.calls += 1
+    all_reduce.bytes += t.numel() * t.element_size()
+
+
+all_reduce.calls = 0
+all_reduce.bytes = 0
 
 
 def _joined() -> bool:
@@ -98,7 +112,7 @@ class Mesh:
             return t
         with tracing.span("parallel.all_reduce"):
             t = t.clone()
-            dist.all_reduce(t, op)
+            all_reduce(t, op)
             return t
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
@@ -112,7 +126,7 @@ class Mesh:
                                device=local.device)
             full[..., self.rank * k:(self.rank + 1) * k] = local
             bits = full.view(_BITS[full.element_size()])
-            dist.all_reduce(bits, dist.ReduceOp.SUM)
+            all_reduce(bits, dist.ReduceOp.SUM)
             return full
 
     def ordered_sum(self, tensors):

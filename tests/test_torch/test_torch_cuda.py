@@ -811,6 +811,42 @@ def test_two_gloo_ranks_on_the_card_trace_like_one_launch(cuda, tmp_path):
             assert case["equal"] and case["records"] > 0, key
 
 
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_design_like_one_objective(cuda, tmp_path):
+    """``build_sharded_objective`` in a 2-rank gloo world on one card, K1 and
+    K3 on each rank's half of the doublet's 2^20 rays (float32), against
+    ``build_objective`` over all of them in this process: the loss and the
+    gradient within a share of their size (the ranks finish the loss from
+    float64 sums, one launch from float32 sums; each K3 folds its own
+    rays)."""
+    from torch_parallel_worlds import World, doublet_cfg, doublet_objective_parts
+
+    from pyrayt_tpu_torch.analysis import build_objective
+
+    cfg = doublet_cfg()
+    from benchmark.configs import doublet_port, doublet_reference
+
+    ft.build_kernels()  # once here: the ranks load the libraries
+    n = 174763  # six lines: 1,048,578 rays
+    log_r = doublet_reference.theta(cfg, {"detune": 0.02}, np.random.default_rng(7))["log_r"]
+    torch.save({"rays_per_source": n, "log_r": log_r}, tmp_path / "inputs.pt")
+    world = World("card_objective", 2, tmp_path, backend="gloo", device="cuda")
+    build, loss = doublet_objective_parts(cfg, "soft")
+    objective = build_objective(build, doublet_port.rays(cfg, n, cuda, torch.float32), loss,
+                                TraceConfig(generation_limit=cfg["generation_limit"]))
+    theta = {"log_r": torch.tensor(log_r, dtype=torch.float32, device=cuda).requires_grad_(True)}
+    value = objective(theta)
+    value.backward()
+    grad = theta["log_r"].grad.cpu().double()
+    ranks = world.wait()
+    for out in ranks:
+        assert out["k3"] == 1
+        assert abs(out["loss0"] - float(value)) <= 1e-5 * abs(float(value))
+        gap = float(torch.linalg.vector_norm(out["grad0"].double() - grad))
+        assert gap <= 1e-4 * float(torch.linalg.vector_norm(grad)), (out["grad0"], grad)
+        assert torch.equal(out["grad0"], ranks[0]["grad0"])
+
+
 # ---------------------------------------------------------------------------
 # the results frame selected on the card
 # ---------------------------------------------------------------------------

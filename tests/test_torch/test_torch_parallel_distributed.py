@@ -122,6 +122,7 @@ def test_importing_the_package_loads_no_jax():
         import pyrayt_tpu_torch.parallel
         import pyrayt_tpu_torch.parallel.distributed, pyrayt_tpu_torch.parallel.mesh
         import pyrayt_tpu_torch.parallel.surfaces, pyrayt_tpu_torch.parallel.trace
+        import pyrayt_tpu_torch.parallel.objective
         bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "pyrayt_tpu."))
                or m == "pyrayt_tpu"]
         print("LOADED", bad)
@@ -129,9 +130,14 @@ def test_importing_the_package_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout + out.stderr[-2000:]
 
 
+# the port's names without a JAX counterpart (API.md, "Differences from
+# `pyrayt_tpu`"): the sharded design objective and its rays
+PORT_ONLY = ("build_sharded_objective", "shard_sources")
+
+
 def test_the_package_exports_the_jax_package_names():
     import pyrayt_tpu.parallel as j_parallel
     import pyrayt_tpu_torch.parallel as t_parallel
 
-    assert sorted(t_parallel.__all__) == sorted(j_parallel.__all__)
+    assert sorted(t_parallel.__all__) == sorted(list(j_parallel.__all__) + list(PORT_ONLY))
     assert all(hasattr(t_parallel, name) for name in t_parallel.__all__)

@@ -371,8 +371,149 @@ def task_card_trace(mesh, inputs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded design objective on the benchmark's doublet
+# ---------------------------------------------------------------------------
+
+DESCRIPTORS = ("soft", "focus", "rms")
+
+
+def doublet_cfg():
+    sys.path.insert(0, str(ROOT))
+    from benchmark.harness import manifest
+
+    return manifest.config_numbers("doublet")
+
+
+def doublet_objective_parts(cfg, descriptor):
+    """(build, loss) of the doublet: ``SoftFocusError`` as the benchmark's
+    ``doublet`` cells run it, or ``FocusError`` / ``RmsSpotRadius`` on its
+    imager."""
+    from benchmark.configs import doublet_port
+
+    from pyrayt_tpu_torch.analysis import metrics
+    from pyrayt_tpu_torch.scene.objects import fresh_ids
+
+    def build(theta):
+        return doublet_port.components(cfg, theta)
+
+    with fresh_ids():
+        sid = build({"log_r": np.zeros(4)})[-1].get_id()
+    if descriptor == "soft":
+        return build, doublet_port.loss(cfg, sid)
+    if descriptor == "focus":
+        return build, metrics.FocusError(cfg["system_focus"], float(sid))
+    return build, metrics.RmsSpotRadius(float(sid))
+
+
+def card_route_patch(on):
+    """Route the objectives through the kernels' autograd Functions (their
+    plain versions on CPU tensors) while ``on``; returns the undo."""
+    from pyrayt_tpu_torch.ops import fused_trace as ft
+
+    saved = ft.pick_fused
+    if on:
+        ft.pick_fused = lambda spec, config, device: True
+
+    def undo():
+        ft.pick_fused = saved
+
+    return undo
+
+
+def design_steps(objective, log_r, steps, t_max, device="cpu", dtype=torch.float64):
+    """The loss and gradient at ``log_r``, then ``optimize()``'s Adam steps
+    (lr 5e-3, cosine over ``t_max``): its loss history and the parameters
+    after the last step."""
+    from pyrayt_tpu_torch.analysis import optimize
+
+    theta = {"log_r": torch.tensor(log_r, dtype=dtype, device=device).requires_grad_(True)}
+    loss = objective(theta)
+    loss.backward()
+    params = []
+
+    def adam(ps):
+        params.extend(ps)
+        return torch.optim.Adam(ps, lr=5e-3)
+
+    _, history = optimize(objective, {"log_r": theta["log_r"].detach()}, steps=steps,
+                          optimizer=adam, scheduler=lambda o:
+                          torch.optim.lr_scheduler.CosineAnnealingLR(o, T_max=t_max))
+    return {"loss0": float(loss.detach()), "grad0": theta["log_r"].grad.detach().cpu(),
+            "history": history, "theta": params[0].detach().cpu()}
+
+
+def task_objective(mesh, inputs):
+    """``build_sharded_objective`` on the doublet, each rank its block of
+    the six lines (``shard_sources``), float64: ``design_steps`` for each
+    route and descriptor asked for, and the float64 reference's loss and
+    gradient over every rank's rays (``doublet4_reference``, the sums
+    combined over the world) at the same radii."""
+    from benchmark.configs import doublet4_port, doublet4_reference
+
+    from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.parallel import build_sharded_objective, default_mesh
+    from pyrayt_tpu_torch.parallel.mesh import all_reduce
+
+    ray_mesh = default_mesh(device=mesh.device)
+    cfg, n = doublet_cfg(), inputs["rays_per_source"]
+    rays = doublet4_port.rays(cfg, n, ray_mesh, torch.float64)
+    config = TraceConfig(generation_limit=cfg["generation_limit"], fixed_loop=True)
+    out = {"n_rays": rays.n_rays}
+    for route, descriptor in inputs["cases"]:
+        undo = card_route_patch(route == "card")
+        try:
+            build, loss = doublet_objective_parts(cfg, descriptor)
+            objective = build_sharded_objective(build, rays, loss, config, ray_mesh)
+            calls, moved = all_reduce.calls, all_reduce.bytes
+            out[(route, descriptor)] = design_steps(objective, inputs["log_r"], inputs["steps"],
+                                                    inputs["t_max"], mesh.device)
+            out[(route, descriptor)]["per_step"] = (
+                (all_reduce.calls - calls) / (inputs["steps"] + 1),
+                (all_reduce.bytes - moved) / (inputs["steps"] + 1))
+        finally:
+            undo()
+
+    def combine(t):
+        t = t.clone()
+        torch.distributed.all_reduce(t)
+        return t
+
+    first, end = doublet4_reference.block_bounds(cfg, n, ray_mesh.size, ray_mesh.rank)
+    ref_rays = doublet4_reference.rays(cfg, n, torch.float64, mesh.device, first, end)
+    theta = {"log_r": torch.tensor(inputs["log_r"], dtype=torch.float64).requires_grad_(True)}
+    value, grad = doublet4_reference.value_and_grad(cfg, theta, ref_rays, 64, combine)
+    out["reference"] = {"loss0": float(value), "grad0": grad["log_r"].detach().cpu()}
+    return out
+
+
+def task_card_objective(mesh, inputs):
+    """The sharded objective's loss and gradient on the card through K1 and
+    K3, each rank its block of the doublet's rays, float32."""
+    from benchmark.configs import doublet4_port
+
+    from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import fused_grad as fg
+    from pyrayt_tpu_torch.parallel import build_sharded_objective, default_mesh
+
+    ray_mesh = default_mesh(device=mesh.device)
+    cfg = doublet_cfg()
+    rays = doublet4_port.rays(cfg, inputs["rays_per_source"], ray_mesh, torch.float32)
+    build, loss = doublet_objective_parts(cfg, "soft")
+    config = TraceConfig(generation_limit=cfg["generation_limit"], fixed_loop=True)
+    objective = build_sharded_objective(build, rays, loss, config, ray_mesh)
+    theta = {"log_r": torch.tensor(inputs["log_r"], dtype=torch.float32,
+                                   device=mesh.device).requires_grad_(True)}
+    before = fg.fused_bwd_loss.launches
+    value = objective(theta)
+    value.backward()
+    return {"loss0": float(value), "grad0": theta["log_r"].grad.cpu(),
+            "k3": fg.fused_bwd_loss.launches - before}
+
+
 TASKS = {"trace": task_trace, "train": task_train, "surfaces": task_surfaces,
-         "card_trace": task_card_trace}
+         "card_trace": task_card_trace, "objective": task_objective,
+         "card_objective": task_card_objective}
 
 
 def main(argv):
