@@ -851,6 +851,20 @@ def test_two_gloo_ranks_on_the_card_design_like_one_objective(cuda, tmp_path):
 # the results frame selected on the card
 # ---------------------------------------------------------------------------
 
+def _mla5_tracer(device, dtype):
+    """A 5x5 microlens array (K2) to a baffle, and its grid source."""
+    from pyrayt_tpu_torch import RayTracer
+
+    with TORCH_NS.fresh_ids():
+        parts = TORCH_NS.comp.microlens_array([2.0 + 0.01 * k for k in range(25)], 0.25, 5, 5,
+                                              1.0)
+        parts.append(TORCH_NS.comp.baffle((10.0, 10.0)).move_x(4.0))
+        source = TORCH_NS.comp.GridOfRays(4.5, 4.5).move_x(-1.0)
+    tracer = RayTracer(source, parts, rays_per_source=4096, generation_limit=4, device=device,
+                       dtype=dtype)
+    return tracer, source
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_trace_frame_selected_on_the_card(cuda, dtype):
@@ -859,16 +873,9 @@ def test_trace_frame_selected_on_the_card(cuda, dtype):
     the same TraceResult, bit for bit."""
     import pandas as pd
 
-    from pyrayt_tpu_torch import RayTracer
     from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
 
-    with TORCH_NS.fresh_ids():
-        parts = TORCH_NS.comp.microlens_array([2.0 + 0.01 * k for k in range(25)], 0.25, 5, 5,
-                                              1.0)
-        parts.append(TORCH_NS.comp.baffle((10.0, 10.0)).move_x(4.0))
-        source = TORCH_NS.comp.GridOfRays(4.5, 4.5).move_x(-1.0)
-    tracer = RayTracer(source, parts, rays_per_source=4096, generation_limit=4, device=cuda,
-                       dtype=dtype)
+    tracer, _ = _mla5_tracer(cuda, dtype)
     launches, rows = ft.fused_trace_wide.launches, records_to_dataframe.rows
     frame = tracer.trace()
     assert ft.fused_trace_wide.launches - launches == 1
@@ -877,3 +884,68 @@ def test_trace_frame_selected_on_the_card(cuda, dtype):
     naive = records_to_dataframe(result.records, result.record_mask, compact=False)
     pd.testing.assert_frame_equal(frame, naive, check_exact=True)
     assert all(frame[c].to_numpy().flags.c_contiguous for c in frame.columns)
+
+
+def _is_page_locked(column):
+    import warnings
+
+    with warnings.catch_warnings():  # pandas may hand out a read-only view
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(column).is_pinned()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trace_frame_page_locked_on_the_card(cuda, dtype, monkeypatch):
+    """trace() on the card copies the frame's rows into page-locked memory,
+    counted in ``records_to_dataframe.pinned``, bit for bit the frame of
+    ``compact=False``.  A kept frame reads unchanged after three frames of
+    a changed scene; dropped frames' blocks are reused, so the host
+    allocator allocates nothing over five calls after the first two; a
+    refused page-locked allocation gives the same frame, copied pageable
+    and counted in ``.pageable``."""
+    import pandas as pd
+
+    from pyrayt_tpu_torch.tracer.frame import records_to_dataframe
+
+    tracer, source = _mla5_tracer(cuda, dtype)
+    pinned, pageable = records_to_dataframe.pinned, records_to_dataframe.pageable
+    frame = tracer.trace()
+    assert (records_to_dataframe.pinned - pinned, records_to_dataframe.pageable) == (1, pageable)
+    assert all(_is_page_locked(frame[c].to_numpy()) for c in frame.columns)
+    result = tracer._result
+    naive = records_to_dataframe(result.records, result.record_mask, compact=False)
+    pd.testing.assert_frame_equal(frame, naive, check_exact=True)
+    assert not _is_page_locked(naive["x1"].to_numpy())
+
+    kept = frame.to_numpy().copy()
+    for _ in range(3):
+        source.move_y(0.05)
+        later = tracer.trace()
+    assert (records_to_dataframe.pinned - pinned, records_to_dataframe.pageable) == (4, pageable)
+    assert len(later) != len(kept) or not np.array_equal(later.to_numpy(), kept)
+    np.testing.assert_array_equal(frame.to_numpy(), kept)
+
+    del frame, later, naive
+    for _ in range(2):
+        tracer.trace()
+    allocated = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(5):
+        tracer.trace()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocated
+    assert records_to_dataframe.pinned - pinned == 11
+
+    empty = torch.empty
+
+    def refusing(*args, pin_memory=False, **kw):
+        if pin_memory:
+            raise RuntimeError("no page-locked memory")
+        return empty(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", refusing)
+    frame = tracer.trace()
+    assert (records_to_dataframe.pinned - pinned, records_to_dataframe.pageable) == (
+        11, pageable + 1)
+    result = tracer._result
+    naive = records_to_dataframe(result.records, result.record_mask, compact=False)
+    pd.testing.assert_frame_equal(frame, naive, check_exact=True)

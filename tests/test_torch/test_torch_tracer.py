@@ -117,19 +117,43 @@ FRAME_MASKS = {
 }
 
 
+def _refuse_page_locked(monkeypatch):
+    """Records that look as if they sat on a card whose page-locked
+    allocation raises."""
+    empty = torch.empty
+
+    def refusing(*args, pin_memory=False, **kw):
+        if pin_memory:
+            raise RuntimeError("no page-locked memory")
+        return empty(*args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch, "empty", refusing)
+
+
+@pytest.mark.parametrize("host", ["records", "pinning_refused"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mask", sorted(FRAME_MASKS))
-def test_frame_selected_where_the_records_are(mask, dtype):
+def test_frame_selected_where_the_records_are(mask, dtype, host, monkeypatch):
     """The default frame, selected on the records' device, equals the host
     selection of ``compact=False`` bit for bit, has contiguous columns,
-    owns its buffer, and is counted in ``records_to_dataframe.rows/.slots``."""
+    owns its buffer, and is counted in ``records_to_dataframe.rows/.slots``.
+    Records on the host count in neither ``.pinned`` nor ``.pageable``;
+    card records whose page-locked allocation raises give the same frame,
+    copied pageable and counted in ``.pageable``."""
     rng = torch.Generator().manual_seed(15)
     records = torch.randn((4, 15, 37), generator=rng, dtype=dtype)
     record_mask = FRAME_MASKS[mask](rng, (4, 37))
     rows, slots = records_to_dataframe.rows, records_to_dataframe.slots
-    frame = records_to_dataframe(records, record_mask)
+    pinned, pageable = records_to_dataframe.pinned, records_to_dataframe.pageable
+    with monkeypatch.context() as patch:
+        if host == "pinning_refused":
+            _refuse_page_locked(patch)
+        frame = records_to_dataframe(records, record_mask)
     assert records_to_dataframe.rows - rows == len(frame) == int(record_mask.sum())
     assert records_to_dataframe.slots - slots == 4 * 37
+    assert records_to_dataframe.pinned == pinned
+    assert records_to_dataframe.pageable - pageable == (host == "pinning_refused")
     naive = records_to_dataframe(records, record_mask, compact=False)
     pd.testing.assert_frame_equal(frame, naive, check_exact=True)
     assert list(frame.columns) == list(FRAME_COLUMNS)
@@ -140,6 +164,8 @@ def test_frame_selected_where_the_records_are(mask, dtype):
     records.add_(1.0)
     assert len(records_to_dataframe(records, record_mask)) == len(kept)
     np.testing.assert_array_equal(frame.to_numpy(), kept)
+    assert (records_to_dataframe.pinned, records_to_dataframe.pageable) == (
+        pinned, pageable + (host == "pinning_refused"))
 
 
 def test_ray_tracer_defaults_to_the_card(monkeypatch):
