@@ -5,9 +5,10 @@ and K4 (generic), the staged wide backward K5 (tail), K6 (group) and K7
 
 The kernels (``csrc/fused_grad.cu``) replace the Pallas kernel built by
 ``pyrayt_tpu/ops/fused_grad.py:_make_bwd_kernel`` in its two modes and run
-by ``_run_bwd``.  The forward of both Functions is the forward kernel K1
-(ops/fused_trace.py): the record buffer it writes holds every generation's
-input state, so the backward saves nothing else.
+by ``_run_bwd``.  On a narrow scene the forward of both autograd Functions
+(loss and trace mode) is the forward kernel K1 (ops/fused_trace.py): the
+record buffer it writes holds every generation's input state, so the
+backward saves nothing else.
 
 * K4 (:func:`fused_bwd`) takes the cotangents of the records (G, 15, n)
   and of the final state (13, n) as buffers: any loss on the trace result
@@ -53,12 +54,11 @@ counterpart of the JAX package's ``_make_bwd_kernel_wide``: K2 without
 ``save_fold`` forward, then one launch that recomputes each generation's
 fold per ray and runs the tail's and the winning tree's adjoints in one
 thread.  It gives the staged backward's gradients up to rounding.  The wide
-Functions keep the contract above.
+routes keep the contract above.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from functools import lru_cache
 from typing import Callable, Tuple
@@ -72,6 +72,7 @@ from pyrayt_tpu_torch.config import TraceConfig
 from pyrayt_tpu_torch.core import primitives as prim_mod
 from pyrayt_tpu_torch.core.intervals import eval_tree_intervals
 from pyrayt_tpu_torch.core.operations import INF, _sum_rows, affine_inverse
+from pyrayt_tpu_torch.ops import _cuda
 from pyrayt_tpu_torch.ops import fused_trace as ft
 from pyrayt_tpu_torch.scene.compile import SceneSpec
 from pyrayt_tpu_torch.tracer import engine
@@ -535,32 +536,6 @@ def _check(spec, config, state0, obj_tx, prim, glass, records, masks, d_records=
             raise ValueError("the backward's inputs must be contiguous")
 
 
-@lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(ft.build_kernels()["fused_grad"][0])
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    args = (
-        [p, ctypes.c_longlong, i]  # state0, n, generations
-        + [p] * 4  # obj_tx, prim, glass, program
-        + [i] * 3  # program_len, n_leaves, n_glass
-        + [p] * 4  # records, masks, d_records, d_fstate
-        + [i, p, i]  # plan, scal, n_scal
-        + [d] * 3  # ray_offset, world_index, intensity_threshold
-        + [i]  # apply_threshold
-        + [p] * 6  # d_state0, partials, d_objtx, d_prim, d_glass, stream
-    )
-    for name in ("pyrayt_fused_bwd_f32", "pyrayt_fused_bwd_f64",
-                 "pyrayt_fused_bwd_loss_f32", "pyrayt_fused_bwd_loss_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.pyrayt_bwd_block_threads.argtypes = []
-    lib.pyrayt_bwd_block_threads.restype = ctypes.c_int
-    lib.pyrayt_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.pyrayt_bwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(spec, config, state0, obj_tx, prim, glass, records, masks, d_records, d_fstate,
             plan, scal):
     """Launch K3 (``plan`` given) or K4 and return its four outputs."""
@@ -572,37 +547,22 @@ def _launch(spec, config, state0, obj_tx, prim, glass, records, masks, d_records
     d_glass = torch.empty((m, matl.N_GLASS_COEFFS), dtype=dtype, device=device)
     if n == 0:
         return d_objtx.zero_(), d_prim.zero_(), d_glass.zero_(), d_state0
-    lib = _library()
-    blocks = -(-n // lib.pyrayt_bwd_block_threads())  # the kernel's grid
+    blocks = -(-n // _cuda.library("fused_grad").pyrayt_bwd_block_threads())  # the kernel's grid
     n_entries = 22 * s + matl.N_GLASS_COEFFS * m
     partials = torch.empty((n_entries, blocks), dtype=torch.float64, device=device)
     program = ft.device_program(spec, device)
-    f32 = dtype == torch.float32
     if plan is None:
-        fn = lib.pyrayt_fused_bwd_f32 if f32 else lib.pyrayt_fused_bwd_f64
+        export, plan_kind, n_scal = "pyrayt_fused_bwd", -1, 0
         scal = records  # unused by K4
-        plan_kind, n_scal = -1, 0
     else:
-        fn = lib.pyrayt_fused_bwd_loss_f32 if f32 else lib.pyrayt_fused_bwd_loss_f64
+        export, plan_kind, n_scal = "pyrayt_fused_bwd_loss", plan.kind, scal.shape[0]
         d_records = d_fstate = records  # unused by K3
-        plan_kind, n_scal = plan.kind, scal.shape[0]
-    with torch.cuda.device(device):
-        err = fn(
-            state0.data_ptr(), n, config.generation_limit,
-            obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
-            program.numel(), s, m,
-            records.data_ptr(), masks.data_ptr(), d_records.data_ptr(), d_fstate.data_ptr(),
-            plan_kind, scal.data_ptr(), n_scal,
-            config.ray_offset, config.world_index, config.intensity_threshold,
-            int(config.apply_intensity_threshold),
-            d_state0.data_ptr(), partials.data_ptr(),
-            d_objtx.data_ptr(), d_prim.data_ptr(), d_glass.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"fused backward kernel launch failed: {lib.pyrayt_bwd_error_string(err).decode()}"
-        )
+    _cuda.call("fused_grad", export, dtype, device,
+               state0, n, config.generation_limit, obj_tx, prim, glass, program, program.numel(),
+               s, m, records, masks, d_records, d_fstate, plan_kind, scal, n_scal,
+               config.ray_offset, config.world_index, config.intensity_threshold,
+               int(config.apply_intensity_threshold),
+               d_state0, partials, d_objtx, d_prim, d_glass)
     return d_objtx, d_prim, d_glass, d_state0
 
 
@@ -654,71 +614,6 @@ def fused_bwd_loss(spec, config, state0, obj_tx, prim, glass, records, masks, sc
 
 
 fused_bwd_loss.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# autograd Functions
-# ---------------------------------------------------------------------------
-
-
-def _d_world(world, d_objtx):
-    """Chain ``d_objtx`` through ``obj_tx = affine_inverse(world)``."""
-    with torch.enable_grad():
-        w = world.detach().requires_grad_(True)
-        obj_tx = affine_inverse(w).reshape(d_objtx.shape)
-        (d_world,) = torch.autograd.grad(obj_tx, w, d_objtx)
-    return d_world
-
-
-def _obj_tx(world, n_leaves):
-    with tracing.span("ops.tables"):
-        return affine_inverse(world).reshape(n_leaves, 16).contiguous()
-
-
-class _FusedLoss(torch.autograd.Function):
-    """loss = plan.value(plan.scalars(K1 trace)); backward through K3."""
-
-    @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config, plan):
-        obj_tx = _obj_tx(world, spec.n_leaves)
-        records, masks, _ = ft.fused_trace(spec, config, state0, obj_tx, prim, glass)
-        scal = plan.scalars(records, masks)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, records, masks, scal)
-        ctx.args = (spec, config, plan)
-        return plan.value(scal).clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        world, prim, glass, state0, obj_tx, records, masks, scal = ctx.saved_tensors
-        spec, config, plan = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = fused_bwd_loss(
-            spec, config, state0, obj_tx, prim, glass, records, masks, plan.row(scal, g), plan
-        )
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
-
-
-class _FusedTrace(torch.autograd.Function):
-    """(records, masks, final state) of K1; backward through K4."""
-
-    @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config):
-        obj_tx = _obj_tx(world, spec.n_leaves)
-        records, masks, fstate = ft.fused_trace(spec, config, state0, obj_tx, prim, glass)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, records, masks)
-        ctx.args = (spec, config)
-        ctx.mark_non_differentiable(masks)
-        return records, masks, fstate
-
-    @staticmethod
-    def backward(ctx, d_records, d_masks, d_fstate):
-        del d_masks
-        world, prim, glass, state0, obj_tx, records, masks = ctx.saved_tensors
-        spec, config = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = fused_bwd(
-            spec, config, state0, obj_tx, prim, glass, records, masks,
-            d_records.contiguous(), d_fstate.contiguous(),
-        )
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -911,49 +806,6 @@ def staged_singles_plain(spec, buf, win, obj_tx, prim):
     return _fold_bwd_plain(spec, entries, buf, obj_tx, prim)
 
 
-@lru_cache(maxsize=None)
-def _wide_library():
-    lib = ctypes.CDLL(ft.build_kernels()["wide_grad"][0])
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    tail_args = (
-        [p, ctypes.c_longlong]  # state0, n
-        + [p] * 6 + [i, i]  # rec, mask, pmask, fold5, glass, program; program_len, n_glass
-        + [p, i, p, i, p]  # drec, plan, scal, n_scal, carry_bar
-        + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
-        + [p] * 5  # buf, dcarry, partials, d_glass, stream
-    )
-    fold_args = (
-        [ctypes.c_longlong] + [p] * 5  # n; buf, win, objtx, prim, program
-        + [i, i, p, i]  # prefix_len, n_single_leaves, slots, group (-1: the singles)
-        + [p] * 5 + [p, i, p, p]  # dpv, keys, vals, d_objtx, d_prim; reduce slots, rows,
-        # reduce scratch, stream
-    )
-    reduce_args = [p, p, ctypes.c_longlong, i, p, p, p, p, p]  # keys, vals, n, rows, reduce
-    # slots, scratch, d_objtx, d_prim, stream
-    for name, args in (("pyrayt_staged_tail_f32", tail_args),
-                       ("pyrayt_staged_tail_f64", tail_args),
-                       ("pyrayt_staged_fold_f32", fold_args),
-                       ("pyrayt_staged_fold_f64", fold_args),
-                       ("pyrayt_row_reduce_f32", reduce_args),
-                       ("pyrayt_row_reduce_f64", reduce_args)):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.pyrayt_staged_reduce_scratch.argtypes = [ctypes.c_longlong, i]
-    lib.pyrayt_staged_reduce_scratch.restype = ctypes.c_longlong
-    lib.pyrayt_staged_block_threads.argtypes = []
-    lib.pyrayt_staged_block_threads.restype = ctypes.c_int
-    lib.pyrayt_staged_error_string.argtypes = [ctypes.c_int]
-    lib.pyrayt_staged_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib, err, what):
-    if err != 0:
-        message = lib.pyrayt_staged_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {message}")
-
-
 def _check_rows(tensors, like):
     for name, t, rows in tensors:
         if t is None:
@@ -993,32 +845,21 @@ def staged_tail(spec, config, state0, rec, mask, pmask, fold5, glass, carry_bar,
                      ("carry_bar", carry_bar, 11), ("d_rec", d_rec, 15)], state0)
         if plan is not None and (scal.ndim != 1 or scal.shape[0] > MAX_SCALARS):
             raise ValueError(f"the scalar row must be 1-D with at most {MAX_SCALARS} values")
-        lib = _wide_library()
         n, m = state0.shape[1], glass.shape[0]
         kw = dict(dtype=state0.dtype, device=state0.device)
         buf = torch.empty((10, n), **kw)
         dcarry = torch.empty((11, n), **kw)
         d_glass = torch.empty((m, matl.N_GLASS_COEFFS), **kw)
-        blocks = -(-n // lib.pyrayt_staged_block_threads())
+        blocks = -(-n // _cuda.library("wide_grad").pyrayt_staged_block_threads())
         partials = torch.empty((max(1, m * matl.N_GLASS_COEFFS), blocks), dtype=torch.float64,
                                device=state0.device)
         program = ft.device_wide_program(spec, state0.device)
-        fn = (lib.pyrayt_staged_tail_f32 if state0.dtype == torch.float32
-              else lib.pyrayt_staged_tail_f64)
-        with torch.cuda.device(state0.device):
-            err = fn(
-                state0.data_ptr(), n, rec.data_ptr(), mask.data_ptr(),
-                pmask.data_ptr() if pmask is not None else None, fold5.data_ptr(), glass.data_ptr(),
-                program.data_ptr(), program.numel(), m,
-                d_rec.data_ptr() if plan is None else None, -1 if plan is None else plan.kind,
-                scal.data_ptr() if plan is not None else None, 0 if plan is None else scal.shape[0],
-                carry_bar.data_ptr(),
-                config.ray_offset, config.world_index, config.intensity_threshold,
-                int(config.apply_intensity_threshold),
-                buf.data_ptr(), dcarry.data_ptr(), partials.data_ptr(), d_glass.data_ptr(),
-                torch.cuda.current_stream(state0.device).cuda_stream,
-            )
-        _raise_on(lib, err, "staged_tail")
+        _cuda.call("wide_grad", "pyrayt_staged_tail", state0.dtype, state0.device,
+                   state0, n, rec, mask, pmask, fold5, glass, program, program.numel(), m,
+                   d_rec if plan is None else None, -1 if plan is None else plan.kind,
+                   scal if plan is not None else None, 0 if plan is None else scal.shape[0],
+                   carry_bar, config.ray_offset, config.world_index, config.intensity_threshold,
+                   int(config.apply_intensity_threshold), buf, dcarry, partials, d_glass)
         staged_tail.launches += 1
         return buf, dcarry, d_glass
 
@@ -1049,7 +890,6 @@ def _fold_launch(spec, group, buf, win, obj_tx, prim, slots, reduce_slots):
     _check_rows([("buf", buf, 10)], buf)
     if win.dtype != torch.int32 or win.device != buf.device or tuple(win.shape) != (buf.shape[1],):
         raise ValueError("win must be (n,) int32 on the buffer's device")
-    lib = _wide_library()
     n, s_count = buf.shape[1], spec.n_leaves
     kw = dict(dtype=buf.dtype, device=buf.device)
     dpv = torch.empty((6, n), **kw)
@@ -1057,18 +897,12 @@ def _fold_launch(spec, group, buf, win, obj_tx, prim, slots, reduce_slots):
     d_obj = torch.zeros((s_count, 16), **kw)
     d_prim = torch.zeros((s_count, 6), **kw)
     rows = reduce_slots.numel()
-    scratch = _reduce_scratch(lib.pyrayt_staged_reduce_scratch, n, rows, buf.device)
+    scratch = _reduce_scratch(_cuda.library("wide_grad").pyrayt_staged_reduce_scratch, n, rows,
+                              buf.device)
     program = ft.device_wide_program(spec, buf.device)
-    fn = lib.pyrayt_staged_fold_f32 if buf.dtype == torch.float32 else lib.pyrayt_staged_fold_f64
-    with torch.cuda.device(buf.device):
-        err = fn(
-            n, buf.data_ptr(), win.data_ptr(), obj_tx.data_ptr(), prim.data_ptr(),
-            program.data_ptr(), *ft.wide_program_sizes(spec), slots.data_ptr(), group,
-            dpv.data_ptr(), keys.data_ptr(), vals.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(),
-            reduce_slots.data_ptr(), rows, scratch.data_ptr(),
-            torch.cuda.current_stream(buf.device).cuda_stream,
-        )
-    _raise_on(lib, err, "staged_group" if group >= 0 else "staged_singles")
+    _cuda.call("wide_grad", "pyrayt_staged_fold", buf.dtype, buf.device,
+               n, buf, win, obj_tx, prim, program, *ft.wide_program_sizes(spec), slots, group,
+               dpv, keys, vals, d_obj, d_prim, reduce_slots, rows, scratch)
     return d_obj, d_prim, dpv
 
 
@@ -1188,17 +1022,13 @@ row_reduce.launches = 0
 
 
 def _row_reduce_launch(keys, vals, reduce_slots, n_rows, n_slots):
-    lib = _wide_library()
     n = keys.shape[0]
     d_obj = torch.zeros((n_slots, 16), dtype=vals.dtype, device=vals.device)
     d_prim = torch.zeros((n_slots, 6), dtype=vals.dtype, device=vals.device)
-    scratch = _reduce_scratch(lib.pyrayt_staged_reduce_scratch, n, n_rows, vals.device)
-    fn = lib.pyrayt_row_reduce_f32 if vals.dtype == torch.float32 else lib.pyrayt_row_reduce_f64
-    with torch.cuda.device(vals.device):
-        err = fn(keys.data_ptr(), vals.data_ptr(), n, n_rows, reduce_slots.data_ptr(),
-                 scratch.data_ptr(), d_obj.data_ptr(), d_prim.data_ptr(),
-                 torch.cuda.current_stream(vals.device).cuda_stream)
-    _raise_on(lib, err, "row_reduce")
+    scratch = _reduce_scratch(_cuda.library("wide_grad").pyrayt_staged_reduce_scratch, n, n_rows,
+                              vals.device)
+    _cuda.call("wide_grad", "pyrayt_row_reduce", vals.dtype, vals.device,
+               keys, vals, n, n_rows, reduce_slots, scratch, d_obj, d_prim)
     return d_obj, d_prim
 
 
@@ -1323,32 +1153,6 @@ def _check_wide_fused(spec, config, state0, obj_tx, prim, glass, slots, aabb, cu
            scal if plan is not None else None)
 
 
-@lru_cache(maxsize=None)
-def _wide_fused_library():
-    lib = ctypes.CDLL(ft.build_kernels()["wide_fused_grad"][0])
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    args = (
-        [p, ctypes.c_longlong, i]  # state0, n, generations
-        + [p] * 4 + [i] * 3  # objtx, prim, glass, program; prefix_len, n_single_leaves, n_glass
-        + [p] * 6  # slots, cull, records, masks, d_records, d_fstate
-        + [i, p, i]  # plan, scal, n_scal
-        + [d] * 3 + [i]  # ray_offset, world_index, intensity_threshold, apply_threshold
-        + [p] * 5 + [i]  # d_state0, keys, vals, glass partials, reduce slots; rows
-        + [p] * 5  # reduce scratch, d_objtx, d_prim, d_glass, stream
-    )
-    for name in ("pyrayt_wide_fused_bwd_f32", "pyrayt_wide_fused_bwd_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.pyrayt_wide_fused_reduce_scratch.argtypes = [ctypes.c_longlong, i]
-    lib.pyrayt_wide_fused_reduce_scratch.restype = ctypes.c_longlong
-    lib.pyrayt_wide_fused_block_threads.argtypes = []
-    lib.pyrayt_wide_fused_block_threads.restype = i
-    lib.pyrayt_wide_fused_error_string.argtypes = [i]
-    lib.pyrayt_wide_fused_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @lru_cache(maxsize=64)
 def _all_slots(n_leaves, device):
     return torch.arange(n_leaves, dtype=torch.int32, device=device)
@@ -1357,7 +1161,7 @@ def _all_slots(n_leaves, device):
 def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, records, masks,
                        d_records, d_fstate, scal, plan):
     """Launch K8 and its reduces; returns its four outputs."""
-    lib = _wide_fused_library()
+    lib = _cuda.library("wide_fused_grad")
     device, dtype = state0.device, state0.dtype
     n, g, s_count, m = state0.shape[1], config.generation_limit, spec.n_leaves, glass.shape[0]
     kw = dict(dtype=dtype, device=device)
@@ -1375,26 +1179,14 @@ def _wide_fused_launch(spec, config, state0, obj_tx, prim, glass, slots, cull, r
                                  dtype=torch.float64, device=device)
     scratch = _reduce_scratch(lib.pyrayt_wide_fused_reduce_scratch, g * n, s_count, device)
     program = ft.device_wide_program(spec, device)
-    fn = lib.pyrayt_wide_fused_bwd_f32 if dtype == torch.float32 else lib.pyrayt_wide_fused_bwd_f64
-    with torch.cuda.device(device):
-        err = fn(
-            state0.data_ptr(), n, g, obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(),
-            program.data_ptr(), *ft.wide_program_sizes(spec), m, slots.data_ptr(), cull.data_ptr(),
-            records.data_ptr(), masks.data_ptr(),
-            d_records.data_ptr() if plan is None else None,
-            d_fstate.data_ptr() if plan is None else None,
-            -1 if plan is None else plan.kind, scal.data_ptr() if plan is not None else None,
-            0 if plan is None else scal.shape[0],
-            config.ray_offset, config.world_index, config.intensity_threshold,
-            int(config.apply_intensity_threshold),
-            d_state0.data_ptr(), keys.data_ptr(), vals.data_ptr(), glass_partials.data_ptr(),
-            _all_slots(s_count, device).data_ptr(), s_count, scratch.data_ptr(),
-            d_obj.data_ptr(), d_prim.data_ptr(), d_glass.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        message = lib.pyrayt_wide_fused_error_string(err).decode()
-        raise RuntimeError(f"fused_bwd_wide kernel launch failed: {message}")
+    _cuda.call("wide_fused_grad", "pyrayt_wide_fused_bwd", dtype, device,
+               state0, n, g, obj_tx, prim, glass, program, *ft.wide_program_sizes(spec), m, slots,
+               cull, records, masks, d_records if plan is None else None,
+               d_fstate if plan is None else None, -1 if plan is None else plan.kind,
+               scal if plan is not None else None, 0 if plan is None else scal.shape[0],
+               config.ray_offset, config.world_index, config.intensity_threshold,
+               int(config.apply_intensity_threshold), d_state0, keys, vals, glass_partials,
+               _all_slots(s_count, device), s_count, scratch, d_obj, d_prim, d_glass)
     return d_obj, d_prim, d_glass, d_state0
 
 
@@ -1427,104 +1219,108 @@ def fused_bwd_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull,
 fused_bwd_wide.launches = 0
 
 
-class _WideLoss(torch.autograd.Function):
-    """loss = plan.value(plan.scalars(K2 trace)); backward K5 + K6 + K7."""
-
-    @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config, plan):
-        obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb, cull = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
-        records, masks, _, fold5, win = ft.fused_trace_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, save_fold=True)
-        scal = plan.scalars(records, masks)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, records, masks, fold5,
-                              win, scal)
-        ctx.args = (spec, config, plan)
-        return plan.value(scal).clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        world, prim, glass, state0, obj_tx, slots, records, masks, fold5, win, scal = \
-            ctx.saved_tensors
-        spec, config, plan = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = staged_bwd(
-            spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold5, win,
-            scal=plan.row(scal, g), plan=plan)
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
+# ---------------------------------------------------------------------------
+# autograd Functions
+# ---------------------------------------------------------------------------
 
 
-class _WideTrace(torch.autograd.Function):
-    """(records, masks, final state) of K2; backward K5 + K6 + K7."""
+def _d_world(world, d_objtx):
+    """Chain ``d_objtx`` through ``obj_tx = affine_inverse(world)``."""
+    with torch.enable_grad():
+        w = world.detach().requires_grad_(True)
+        obj_tx = affine_inverse(w).reshape(d_objtx.shape)
+        (d_world,) = torch.autograd.grad(obj_tx, w, d_objtx)
+    return d_world
 
-    @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config):
-        obj_tx = _obj_tx(world, spec.n_leaves)
-        slots, aabb, cull = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+
+def _obj_tx(world, n_leaves):
+    with tracing.span("ops.tables"):
+        return affine_inverse(world).reshape(n_leaves, 16).contiguous()
+
+
+def _route_forward(route, spec, config, world, prim, glass, state0, obj_tx):
+    """The forward of ``route`` (:func:`_check_scene`): ``(records, masks,
+    final state, saved)``, where ``saved`` are the tensors its backward
+    reads besides the inputs and the records: narrow, K1 (nothing); staged,
+    K2 with ``save_fold`` (``slots``, ``fold5``, ``win``); fused, K2 (its
+    tables ``slots``, ``aabb``, ``cull``)."""
+    if route == "narrow":
+        return (*ft.fused_trace(spec, config, state0, obj_tx, prim, glass), ())
+    slots, aabb, cull = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
+    if route == "staged":
         records, masks, fstate, fold5, win = ft.fused_trace_wide(
             spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, save_fold=True)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, slots, records, masks, fold5, win)
-        ctx.args = (spec, config)
-        ctx.mark_non_differentiable(masks)
-        return records, masks, fstate
+        return records, masks, fstate, (slots, fold5, win)
+    return (*ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass, slots, aabb, cull),
+            (slots, aabb, cull))
+
+
+def _route_backward(route, spec, config, state0, obj_tx, prim, glass, records, masks, saved,
+                    d_records=None, d_fstate=None, scal=None, plan=None):
+    """The backward of ``route`` given the record and final-state cotangents
+    or a loss plan and its scalar row: narrow, K4 or K3; staged,
+    :func:`staged_bwd`; fused, K8.  Returns ``(d_objtx, d_prim, d_glass,
+    d_state0)``."""
+    inputs = (spec, config, state0, obj_tx, prim, glass)
+    if route == "staged":
+        slots, fold5, win = saved
+        return staged_bwd(*inputs, slots, records, masks, fold5, win, d_records=d_records,
+                          d_fstate=d_fstate, scal=scal, plan=plan)
+    if route == "fused":
+        return fused_bwd_wide(*inputs, *saved, records, masks, d_records=d_records,
+                              d_fstate=d_fstate, scal=scal, plan=plan)
+    if plan is None:
+        return fused_bwd(*inputs, records, masks, d_records, d_fstate)
+    return fused_bwd_loss(*inputs, records, masks, scal, plan)
+
+
+class _KernelLoss(torch.autograd.Function):
+    """loss = plan.value(plan.scalars(trace)) through the route's forward;
+    backward through its backward in loss mode."""
 
     @staticmethod
-    def backward(ctx, d_records, d_masks, d_fstate):
-        del d_masks
-        world, prim, glass, state0, obj_tx, slots, records, masks, fold5, win = ctx.saved_tensors
-        spec, config = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = staged_bwd(
-            spec, config, state0, obj_tx, prim, glass, slots, records, masks, fold5, win,
-            d_records=d_records.contiguous(), d_fstate=d_fstate.contiguous())
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
-
-
-class _WideFusedLoss(torch.autograd.Function):
-    """loss = plan.value(plan.scalars(K2 trace)); backward K8."""
-
-    @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config, plan):
+    def forward(ctx, world, prim, glass, state0, spec, config, route, plan):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        tables = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
-        records, masks, _ = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass, *tables)
+        records, masks, _, saved = _route_forward(route, spec, config, world, prim, glass, state0,
+                                                  obj_tx)
         scal = plan.scalars(records, masks)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, *tables, records, masks, scal)
-        ctx.args = (spec, config, plan)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, records, masks, scal, *saved)
+        ctx.args = (spec, config, route, plan)
         return plan.value(scal).clone()
 
     @staticmethod
     def backward(ctx, g):
-        world, prim, glass, state0, obj_tx, slots, aabb, cull, records, masks, scal = \
-            ctx.saved_tensors
-        spec, config, plan = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
+        world, prim, glass, state0, obj_tx, records, masks, scal, *saved = ctx.saved_tensors
+        spec, config, route, plan = ctx.args
+        d_objtx, d_prim, d_glass, d_state0 = _route_backward(
+            route, spec, config, state0, obj_tx, prim, glass, records, masks, saved,
             scal=plan.row(scal, g), plan=plan)
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
+        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None, None
 
 
-class _WideFusedTrace(torch.autograd.Function):
-    """(records, masks, final state) of K2; backward K8."""
+class _KernelTrace(torch.autograd.Function):
+    """(records, masks, final state) of the route's forward; backward
+    through its backward in generic mode."""
 
     @staticmethod
-    def forward(ctx, world, prim, glass, state0, spec, config):
+    def forward(ctx, world, prim, glass, state0, spec, config, route):
         obj_tx = _obj_tx(world, spec.n_leaves)
-        tables = ft.wide_cull_tables(spec, {"world": world, "prim": prim}, state0.dtype)
-        records, masks, fstate = ft.fused_trace_wide(spec, config, state0, obj_tx, prim, glass,
-                                                     *tables)
-        ctx.save_for_backward(world, prim, glass, state0, obj_tx, *tables, records, masks)
-        ctx.args = (spec, config)
+        records, masks, fstate, saved = _route_forward(route, spec, config, world, prim, glass,
+                                                       state0, obj_tx)
+        ctx.save_for_backward(world, prim, glass, state0, obj_tx, records, masks, *saved)
+        ctx.args = (spec, config, route)
         ctx.mark_non_differentiable(masks)
         return records, masks, fstate
 
     @staticmethod
     def backward(ctx, d_records, d_masks, d_fstate):
         del d_masks
-        world, prim, glass, state0, obj_tx, slots, aabb, cull, records, masks = ctx.saved_tensors
-        spec, config = ctx.args
-        d_objtx, d_prim, d_glass, d_state0 = fused_bwd_wide(
-            spec, config, state0, obj_tx, prim, glass, slots, aabb, cull, records, masks,
+        world, prim, glass, state0, obj_tx, records, masks, *saved = ctx.saved_tensors
+        spec, config, route = ctx.args
+        d_objtx, d_prim, d_glass, d_state0 = _route_backward(
+            route, spec, config, state0, obj_tx, prim, glass, records, masks, saved,
             d_records=d_records.contiguous(), d_fstate=d_fstate.contiguous())
-        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None
+        return _d_world(world, d_objtx), d_prim, d_glass, d_state0, None, None, None
 
 
 def _function_inputs(params, rays):
@@ -1540,18 +1336,15 @@ def _function_inputs(params, rays):
 
 
 def _check_scene(spec: SceneSpec, config: TraceConfig) -> str:
-    """The backward of the scene (:func:`wide_grad_mode`): ``"narrow"``,
-    ``"staged"`` or ``"fused"``; raises for a scene no kernel covers."""
+    """The scene's route through the kernels (:func:`wide_grad_mode`):
+    ``"narrow"``, ``"staged"`` or ``"fused"``, read by :func:`_route_forward`
+    and :func:`_route_backward`; raises for a scene no kernel covers."""
     if not (ft.supports_fused(spec) or ft.supports_fused_wide(spec)):
         raise ValueError(
             "scene has non-packed materials, no leaves, or no batchable tree groups; "
             "use the plain engine"
         )
     return wide_grad_mode(spec, config)
-
-
-_LOSS_FUNCTIONS = {"narrow": _FusedLoss, "staged": _WideLoss, "fused": _WideFusedLoss}
-_TRACE_FUNCTIONS = {"narrow": _FusedTrace, "staged": _WideTrace, "fused": _WideFusedTrace}
 
 
 @lru_cache(maxsize=64)
@@ -1569,10 +1362,10 @@ def build_fused_value_and_grad_fn(spec: SceneSpec, materials, config: TraceConfi
     plan = loss_plan(loss)
     if plan is None:
         raise ValueError(f"loss {loss!r} has no fused plan")
-    function = _LOSS_FUNCTIONS[_check_scene(spec, config)]
+    route = _check_scene(spec, config)
 
     def value(params, rays):
-        return function.apply(*_function_inputs(params, rays), spec, config, plan)
+        return _KernelLoss.apply(*_function_inputs(params, rays), spec, config, route, plan)
 
     return value
 
@@ -1582,8 +1375,8 @@ def fused_plan_value(spec: SceneSpec, config: TraceConfig, plan: LossPlan, param
     function of :func:`build_fused_value_and_grad_fn` computes it, for a
     plan the caller made: a sharded objective's, whose ``scalars`` reduce
     over every rank (``parallel.build_sharded_objective``)."""
-    function = _LOSS_FUNCTIONS[_check_scene(spec, config)]
-    return function.apply(*_function_inputs(params, rays), spec, config, plan)
+    return _KernelLoss.apply(*_function_inputs(params, rays), spec, config,
+                             _check_scene(spec, config), plan)
 
 
 @lru_cache(maxsize=64)
@@ -1595,10 +1388,11 @@ def build_fused_vjp_trace_fn(spec: SceneSpec, materials, config: TraceConfig):
     and ``final_rays`` runs the backward kernels.  Same contract as
     ``ops.fused_trace.build_fused_trace_fn``."""
     del materials
-    function = _TRACE_FUNCTIONS[_check_scene(spec, config)]
+    route = _check_scene(spec, config)
 
     def trace(params, rays) -> engine.TraceResult:
-        records, masks, fstate = function.apply(*_function_inputs(params, rays), spec, config)
+        records, masks, fstate = _KernelTrace.apply(*_function_inputs(params, rays), spec, config,
+                                                    route)
         return engine.TraceResult(
             records=records,
             record_mask=masks,

@@ -48,15 +48,7 @@ per-ray exit contract above, and with ``save_fold`` also return the fold
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -76,6 +68,8 @@ from pyrayt_tpu_torch.core.operations import (
     refract,
     safe_normalize,
 )
+from pyrayt_tpu_torch.ops import _cuda
+from pyrayt_tpu_torch.ops._cuda import KERNEL_SOURCES, build_kernels
 from pyrayt_tpu_torch.ops.sortnet import batcher_pairs
 from pyrayt_tpu_torch.scene.compile import LEAF, OP_BY_NAME, SceneSpec
 from pyrayt_tpu_torch.tracer import engine
@@ -102,13 +96,6 @@ MAX_NET_ROWS = 16
 
 # scene-program opcodes; keep equal to the Opcode enum in csrc/fused_trace.cu
 IV_LOAD, IV_AND, IV_SUB, IV_FOLD, NET_PUSH, NET_COMBINE, NET_FOLD = range(7)
-
-_CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-# one shared library per kernel source; every source includes the headers
-KERNEL_SOURCES = ("fused_trace.cu", "fused_grad.cu", "wide_trace.cu", "wide_grad.cu",
-                  "wide_fused_grad.cu")
-_HEADERS = ("trace_common.cuh", "adjoint_common.cuh", "wide_common.cuh", "row_reduce.cuh")
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 
 def supports_fused(spec: SceneSpec) -> bool:
@@ -709,97 +696,6 @@ def wide_program(spec: SceneSpec) -> np.ndarray:
                   + emit.pairs + _leaf_rows(spec))
 
 
-# ---------------------------------------------------------------------------
-# build and bind
-# ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for candidate in (
-        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if candidate and os.path.exists(candidate):
-            return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
-
-
-def _build_one(name: str, digest: str):
-    """Start nvcc on one source; returns ``(lib_path, process or None, tmp)``."""
-    lib_path = _BUILD_DIR / f"libpyrayt_{Path(name).stem}_{digest}.so"
-    if lib_path.exists():
-        return lib_path, None, None
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v",
-        "-o", tmp, str(_CSRC_DIR / name),
-    ]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return lib_path, proc, tmp
-
-
-@lru_cache(maxsize=None)
-def build_kernels():
-    """Compile every source of ``KERNEL_SOURCES`` for sm_90a into
-    ``build/torch_kernels`` (once per version of the sources and the shared
-    header), one nvcc process per source, all started together.  Returns
-    ``{source stem: (library path, seconds, compiler log)}`` (a library
-    built earlier: 0 seconds and "cached" before the log kept beside it);
-    raises if a build fails."""
-    header = b"".join((_CSRC_DIR / h).read_bytes() for h in _HEADERS)
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    start = time.perf_counter()
-    started = {}
-    for name in KERNEL_SOURCES:
-        digest = hashlib.sha256(header + (_CSRC_DIR / name).read_bytes()).hexdigest()[:16]
-        started[name] = _build_one(name, digest)
-    built = {}
-    failures = []
-    for name, (lib_path, proc, tmp) in started.items():
-        log_path = lib_path.with_suffix(".log")
-        if proc is None:
-            log = log_path.read_text() if log_path.exists() else ""
-            built[Path(name).stem] = (str(lib_path), 0.0, "cached\n" + log)
-            continue
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - start
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
-            continue
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
-        built[Path(name).stem] = (str(lib_path), seconds, log)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return built
-
-
-@lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build_kernels()["fused_trace"][0])
-    args = (
-        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]  # state, n, generations
-        + [ctypes.c_void_p] * 4  # obj_tx, prim, glass, program
-        + [ctypes.c_int] * 3  # program_len, n_leaves, n_glass
-        + [ctypes.c_void_p] * 3  # records, masks, final state
-        + [ctypes.c_double] * 3  # ray_offset, world_index, intensity_threshold
-        + [ctypes.c_int, ctypes.c_void_p]  # apply_threshold, stream
-    )
-    for name in ("pyrayt_fused_trace_f32", "pyrayt_fused_trace_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.pyrayt_error_string.argtypes = [ctypes.c_int]
-    lib.pyrayt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @lru_cache(maxsize=64)
 def device_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(scene_program(spec), device=device)
@@ -855,25 +751,11 @@ def fused_trace(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, glass
         fstate = torch.empty_like(state)
         if n == 0:
             return records, masks, fstate
-        lib = _library()
-        launch = (
-            lib.pyrayt_fused_trace_f32 if state.dtype == torch.float32
-            else lib.pyrayt_fused_trace_f64
-        )
-        with torch.cuda.device(state.device):
-            err = launch(
-                state.data_ptr(), n, g,
-                obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
-                program.numel(), spec.n_leaves, glass.shape[0],
-                records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
-                config.ray_offset, config.world_index, config.intensity_threshold,
-                int(config.apply_intensity_threshold),
-                torch.cuda.current_stream(state.device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"fused_trace kernel launch failed: {lib.pyrayt_error_string(err).decode()}"
-            )
+        _cuda.call("fused_trace", "pyrayt_fused_trace", state.dtype, state.device,
+                   state, n, g, obj_tx, prim, glass, program, program.numel(), spec.n_leaves,
+                   glass.shape[0], records, masks, fstate, config.ray_offset,
+                   config.world_index, config.intensity_threshold,
+                   int(config.apply_intensity_threshold))
         fused_trace.launches += 1
         return records, masks, fstate
 
@@ -1185,25 +1067,6 @@ def fused_trace_wide_plain(spec: SceneSpec, config: TraceConfig, state, obj_tx, 
     return records, masks, x
 
 
-@lru_cache(maxsize=None)
-def _wide_library():
-    lib = ctypes.CDLL(build_kernels()["wide_trace"][0])
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    args = (
-        [p, ctypes.c_longlong, i]  # state, n, generations
-        + [p] * 4 + [i] * 3  # obj_tx, prim, glass, program; prefix_len, n_single_leaves, n_glass
-        + [p] * 7  # slots, cull, records, masks, final state, fold5, win
-        + [d] * 3 + [i, p]  # ray_offset, world_index, intensity_threshold; apply, stream
-    )
-    for name in ("pyrayt_fused_trace_wide_f32", "pyrayt_fused_trace_wide_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.pyrayt_wide_error_string.argtypes = [ctypes.c_int]
-    lib.pyrayt_wide_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @lru_cache(maxsize=64)
 def device_wide_program(spec: SceneSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(wide_program(spec), device=device)
@@ -1250,26 +1113,11 @@ def fused_trace_wide(spec: SceneSpec, config: TraceConfig, state, obj_tx, prim, 
         outs = (records, masks, fstate) + ((fold5, win) if save_fold else ())
         if n == 0:
             return outs
-        lib = _wide_library()
-        launch = (lib.pyrayt_fused_trace_wide_f32 if state.dtype == torch.float32
-                  else lib.pyrayt_fused_trace_wide_f64)
-        with torch.cuda.device(state.device):
-            err = launch(
-                state.data_ptr(), n, g,
-                obj_tx.data_ptr(), prim.data_ptr(), glass.data_ptr(), program.data_ptr(),
-                *wide_program_sizes(spec), glass.shape[0],
-                slots.data_ptr(), cull.data_ptr(),
-                records.data_ptr(), masks.data_ptr(), fstate.data_ptr(),
-                fold5.data_ptr() if save_fold else None, win.data_ptr() if save_fold else None,
-                config.ray_offset, config.world_index, config.intensity_threshold,
-                int(config.apply_intensity_threshold),
-                torch.cuda.current_stream(state.device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                "fused_trace_wide kernel launch failed: "
-                f"{lib.pyrayt_wide_error_string(err).decode()}"
-            )
+        _cuda.call("wide_trace", "pyrayt_fused_trace_wide", state.dtype, state.device,
+                   state, n, g, obj_tx, prim, glass, program, *wide_program_sizes(spec),
+                   glass.shape[0], slots, cull, records, masks, fstate, fold5, win,
+                   config.ray_offset, config.world_index, config.intensity_threshold,
+                   int(config.apply_intensity_threshold))
         fused_trace_wide.launches += 1
         return outs
 

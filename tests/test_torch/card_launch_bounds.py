@@ -36,8 +36,8 @@ VARIANTS = (
 )
 
 
-def build(ft, source: Path, out: Path, flags):
-    cmd = [ft._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+def build(cuda, source: Path, out: Path, flags):
+    cmd = [cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", str(out), str(source)]
     log = subprocess.run(cmd, check=True, capture_output=True, text=True).stderr
     usage = {}
@@ -72,6 +72,7 @@ def main() -> int:
     from pyrayt_tpu_torch import components as comp
     from pyrayt_tpu_torch.analysis import metrics
     from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import _cuda
     from pyrayt_tpu_torch.ops import fused_grad as fg
     from pyrayt_tpu_torch.ops import fused_trace as ft
     from pyrayt_tpu_torch.scene import fresh_ids
@@ -94,6 +95,7 @@ def main() -> int:
     assert SHIPPED in source, "the kernel's launch bounds moved; update this script"
     reference = None
     results = []
+    shipped = _cuda.build_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         for k, (label, bounds, flags) in enumerate(VARIANTS):
             src = Path(tmp) / f"k8_{k}.cu"
@@ -101,9 +103,10 @@ def main() -> int:
                 (Path(tmp) / header.name).write_text(header.read_text())
             src.write_text(source.replace(SHIPPED, f"{bounds} wide_fused_bwd_kernel"))
             lib_path = Path(tmp) / f"libk8_{k}.so"
-            usage = build(ft, src, lib_path, flags)
-            fg._wide_fused_library.cache_clear()
-            ft.build_kernels = lambda lib_path=lib_path: {"wide_fused_grad": (str(lib_path), 0, "")}
+            usage = build(_cuda, src, lib_path, flags)
+            _cuda.library.cache_clear()
+            _cuda.build_kernels = lambda lib_path=lib_path: {
+                **shipped, "wide_fused_grad": (str(lib_path), 0, "")}
             out = fg._wide_fused_launch(*call)
             if reference is None:
                 reference = out

@@ -183,6 +183,7 @@ def main() -> int:
     from pyrayt_tpu_torch import materials as matl
     from pyrayt_tpu_torch.analysis import metrics
     from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import _cuda
     from pyrayt_tpu_torch.ops import fused_grad as fg
     from pyrayt_tpu_torch.ops import fused_trace as ft
     from pyrayt_tpu_torch.scene import fresh_ids
@@ -279,7 +280,7 @@ def main() -> int:
             text += OCCUPANCY_SNIPPET
         src, lib = Path(tmp.name) / f"bwd_{k}.cu", Path(tmp.name) / f"libbwd_{k}.so"
         src.write_text(text)
-        cmd = [ft._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib), str(src)]
         builds.append((label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True)))
@@ -302,8 +303,8 @@ def main() -> int:
         return {kernel: fn(int(f64), int(kernel == "k3"), *dims) for kernel in ("k3", "k4")}
 
     def use(lib_path, log):
-        fg._library.cache_clear()
-        ft.build_kernels = lambda: {"fused_grad": (str(lib_path), 0.0, log)}
+        _cuda.library.cache_clear()
+        _cuda.build_kernels = lambda: {**real_build(), "fused_grad": (str(lib_path), 0.0, log)}
 
     base_lib = built[0][1] if built and built[0][0] == "as is" else None
     timed = {}
@@ -321,7 +322,7 @@ def main() -> int:
         if label in ("condenser_float32", "hetero_row_float32"):
             timed[label] = (k3, k4, dims)
         torch.cuda.empty_cache()
-    real_build = ft.build_kernels
+    real_build = _cuda.build_kernels
     for label, lib, usage in built:
         use(lib, "")
         entry = {"variant": label, "ptxas": usage}
@@ -330,8 +331,8 @@ def main() -> int:
                                  "blocks_per_sm": occupancy(lib, dims, False)}
         out["variants"].append(entry)
         print(json.dumps(entry), flush=True)
-    ft.build_kernels = real_build
-    fg._library.cache_clear()
+    _cuda.build_kernels = real_build
+    _cuda.library.cache_clear()
     tmp.cleanup()
     print(json.dumps(out), flush=True)
     return 0

@@ -4,7 +4,7 @@ shared array's address folded to 0.
     python3 tests/test_torch/card_ptx_check.py [--csrc DIR]
 
 Compiles each source of ``pyrayt_tpu_torch/csrc`` (or of another copy of it)
-to PTX with the flags of ``ops/fused_trace.py:build_kernels`` and, per
+to PTX with the flags of ``ops/_cuda.py:build_kernels`` and, per
 function, follows every register set by ``add.s64 %rdA, 0, %rdB`` (an
 address whose base is the constant 0) through further address arithmetic
 to the loads that use it.  nvcc 12.9 at -O3 for sm_90a emitted such
@@ -60,13 +60,13 @@ def main() -> int:
     parser.add_argument("--csrc", default=str(ROOT / "pyrayt_tpu_torch" / "csrc"))
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
-    from pyrayt_tpu_torch.ops import fused_trace as ft
+    from pyrayt_tpu_torch.ops import _cuda
 
     bad = 0
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ft.KERNEL_SOURCES:
+        for name in _cuda.KERNEL_SOURCES:
             ptx = Path(tmp) / (Path(name).stem + ".ptx")
-            subprocess.run([ft._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                             "-O3", "-ptx", "-o", str(ptx), str(Path(args.csrc) / name)],
                            check=True)
             found = null_based_loads(ptx.read_text())

@@ -48,12 +48,13 @@ def child(csrc: str | None) -> int:
     from pyrayt_tpu_torch import interop
     from pyrayt_tpu_torch.analysis import metrics
     from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import _cuda
     from pyrayt_tpu_torch.ops import fused_grad as fg
     from pyrayt_tpu_torch.ops import fused_trace as ft
 
     if csrc:
-        ft._CSRC_DIR = Path(csrc)
-        ft._BUILD_DIR = Path(csrc) / "build"
+        _cuda._CSRC_DIR = Path(csrc)
+        _cuda._BUILD_DIR = Path(csrc) / "build"
     from torch_parity_scenes import TORCH_NS, WIDE_SCENES, wide_rays
 
     ft.build_kernels()

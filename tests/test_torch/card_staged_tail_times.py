@@ -154,6 +154,7 @@ def main() -> int:
     from pyrayt_tpu_torch import components as comp
     from pyrayt_tpu_torch.analysis import metrics
     from pyrayt_tpu_torch.config import TraceConfig
+    from pyrayt_tpu_torch.ops import _cuda
     from pyrayt_tpu_torch.ops import fused_grad as fg
     from pyrayt_tpu_torch.ops import fused_trace as ft
     from pyrayt_tpu_torch.scene import fresh_ids
@@ -242,7 +243,7 @@ def main() -> int:
             text += OCCUPANCY_SNIPPET
         src, lib = Path(tmp.name) / f"tail_{k}.cu", Path(tmp.name) / f"libtail_{k}.so"
         src.write_text(text)
-        cmd = [ft._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib), str(src)]
         builds.append((label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True)))
@@ -281,17 +282,17 @@ def main() -> int:
     base = [lib for label, lib, _ in built if label == "as is"]
     if base:
         out["blocks_per_sm"] = occupancy(base[0], n_glass)
-    real_build = ft.build_kernels
+    real_build = _cuda.build_kernels
     for label, lib, usage in built:
-        fg._wide_library.cache_clear()
-        ft.build_kernels = lambda lib=lib: {"wide_grad": (str(lib), 0.0, "")}
+        _cuda.library.cache_clear()
+        _cuda.build_kernels = lambda lib=lib: {**real_build(), "wide_grad": (str(lib), 0.0, "")}
         entry = {"variant": label, "ptxas": usage, "blocks_per_sm": occupancy(lib, n_glass)}
         for mode, mode_calls in timed.items():
             entry[f"{mode}_f32_device_ms"] = step_times(mode_calls, full=False)["device_ms"]
         out["variants"].append(entry)
         print(json.dumps(entry), flush=True)
-    ft.build_kernels = real_build
-    fg._wide_library.cache_clear()
+    _cuda.build_kernels = real_build
+    _cuda.library.cache_clear()
     tmp.cleanup()
     print(json.dumps(out), flush=True)
     return 0
