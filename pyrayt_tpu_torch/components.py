@@ -25,6 +25,7 @@ from pyrayt_tpu_torch.config import default_device
 from pyrayt_tpu_torch.core.operations import safe_sqrt, transform_rays
 from pyrayt_tpu_torch.scene import csg
 from pyrayt_tpu_torch.scene._backend import is_traced, plain
+from pyrayt_tpu_torch.scene.lenslets import LensletGrid
 from pyrayt_tpu_torch.scene.objects import WorldObject
 from pyrayt_tpu_torch.scene.surfaces import Cuboid, Cylinder, Paraboloid, Sphere, XYPlane
 from pyrayt_tpu_torch.tracer.rayset import RaySet
@@ -367,7 +368,10 @@ def microlens_array(
     material=None,
 ):
     """``ny x nx`` grid of plano-convex lenslets in the YZ plane, optical
-    axes +X, centered on the origin.  Returns the component list.  ``r`` is
+    axes +X, centered on the origin.  Returns the component list, one
+    lenslet handle per lenslet in row-major order (scene/lenslets.py): the
+    grid is one record, compiled in one batched pass, and a handle builds
+    its lenslet's objects on first use other than ``get_id()``.  ``r`` is
     one shared radius or ``ny * nx`` per-lenslet radii in row-major order.
     Arrays past 32 leaves batch as one group of same-shape trees: the
     wide kernel K2 on the card, the plain engine's wide path on the CPU."""
@@ -376,33 +380,9 @@ def microlens_array(
     if aperture is None:
         aperture = pitch
 
-    per_lenslet = np.ndim(r) > 0
-    if per_lenslet and len(r) != ny * nx:
+    if np.ndim(r) > 0 and len(r) != ny * nx:
         raise ValueError(f"per-lenslet radii: expected {ny * nx} values, got {len(r)}")
-    # the spheres' offsets -(r - thickness / 2) (plano_convex_lens), for a
-    # traced tensor of radii in one op: a lenslet takes views of it
-    radii = plain(r)
-    sphere_z = -(radii - thickness / 2) if isinstance(radii, torch.Tensor) else None
-
-    lenslets = []
-    for iy in range(ny):
-        for iz in range(nx):
-            y = (iy - (ny - 1) / 2.0) * pitch
-            z = (iz - (nx - 1) / 2.0) * pitch
-            i = iy * nx + iz
-            r_i = r[i] if per_lenslet else r
-            if sphere_z is None:
-                z_i = -(r_i - thickness / 2)
-            else:
-                z_i = sphere_z[i] if per_lenslet else sphere_z
-            lenslets.append(
-                _plano_convex(r_i, thickness, z_i, aperture, material)
-                .rotate_y(90)
-                .rotate_x(90)
-                .move_y(y)
-                .move_z(z)
-            )
-    return lenslets
+    return LensletGrid(r, thickness, nx, ny, pitch, aperture, material, _plano_convex).lenslets()
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,12 @@ in its backward.  The traced scalars go through one table: distinct 0-d
 tensors are stacked once, and 0-d views of one tensor (the radii
 ``r[i]`` of an array) are gathered from it by one index, whose backward is
 one scatter.
+
+A chain may also come stacked: ``m0`` (k, 4, 4) and factors whose hosts
+are (k, 4, 4) and whose traced values are columns (k,) or 0-d tensors
+shared by the k members (a grid of lenslets, scene/lenslets.py).  Its
+columns join the table as the views of their root they are, so its rows
+are those of the k chains given one by one, bit for bit.
 """
 
 from __future__ import annotations
@@ -82,29 +88,36 @@ def constant_factor(matrix) -> Factor:
 def mat4_mul(a, b):
     """``a @ b`` over leading batch axes, as explicit multiply-adds summed
     left to right (no TF32 path)."""
-    return (
-        a[..., :, 0, None] * b[..., None, 0, :]
-        + a[..., :, 1, None] * b[..., None, 1, :]
-        + a[..., :, 2, None] * b[..., None, 2, :]
-        + a[..., :, 3, None] * b[..., None, 3, :]
-    )
+    cols = a.unsqueeze(-1).unbind(-2)  # a[..., :, k, None]
+    rows = b.unsqueeze(-3).unbind(-2)  # b[..., None, k, :]
+    return cols[0] * rows[0] + cols[1] * rows[1] + cols[2] * rows[2] + cols[3] * rows[3]
 
 
 def _flat_view(t):
     """``(root, flat index)`` when the 0-d tensor ``t`` is a view of one
     element of a contiguous root of its dtype that requires grad: the
-    element's value and gradient are then the root's at that index."""
-    base = t._base
+    element's value and gradient are then the root's at that index.  For a
+    column (1-D) ``t`` that is such a root or a view of one, the index is
+    the column's (k,) flat indices."""
+    if t.dim() == 1:
+        base = t if t._base is None else t._base
+    elif t.dim() == 0:
+        base = t._base
+    else:
+        return None
     if (
         base is None
-        or t.dim() != 0
         or base.dtype != t.dtype
         or not base.requires_grad
         or not base.is_contiguous()
     ):
         return None
     offset = t.storage_offset() - base.storage_offset()
-    if not 0 <= offset < base.numel():
+    if t.dim():
+        offset = offset + t.stride(0) * np.arange(t.shape[0])
+        if t.shape[0] and not (0 <= offset.min() and offset.max() < base.numel()):
+            return None
+    elif not 0 <= offset < base.numel():
         return None
     return base, offset
 
@@ -133,47 +146,78 @@ class _Uploads:
     @staticmethod
     def view(flat, handle):
         offset, shape = handle
-        n = int(np.prod(shape, dtype=np.int64))
-        return flat[offset:offset + n].view(shape)
+        strides, step = [], 1
+        for n in reversed(shape):
+            strides.insert(0, step)
+            step *= int(n)
+        return flat.as_strided(shape, strides, flat.storage_offset() + offset)
 
 
 class _Table:
-    """The traced scalars of one rebuild, each distinct tensor once."""
+    """The traced values of one rebuild, each distinct tensor once: a 0-d
+    tensor (or a traced matrix) takes one handle, a column (a 1-D tensor,
+    one value per member of a stacked chain) one handle per element."""
 
     def __init__(self):
         self.handle_of = {}
-        self.values = []
+        self.values = []  # the tensors added
+        self.size = 0  # handles so far
 
     def add(self, t) -> int:
         key = id(t)
         handle = self.handle_of.get(key)
         if handle is None:
-            handle = self.handle_of[key] = len(self.values)
+            handle = self.handle_of[key] = self.size
             self.values.append(t)
+            self.size += 1
         return handle
+
+    def add_column(self, t) -> np.ndarray:
+        key = id(t)
+        handles = self.handle_of.get(key)
+        if handles is None:
+            handles = self.handle_of[key] = np.arange(self.size, self.size + t.shape[0])
+            self.values.append(t)
+            self.size += t.shape[0]
+        return handles
+
+    def add_members(self, t, k) -> np.ndarray:
+        """The (k,) handles of a stacked chain's traced value: a column's
+        own, or a shared 0-d tensor's one handle k times."""
+        return self.add_column(t) if t.dim() else np.full(k, self.add(t))
 
     def layout(self, ints):
         """Plan the table: ``(where, plan)`` with ``where[handle]`` the
         position of each value and ``plan`` the parts in table order."""
-        where = np.empty(len(self.values), dtype=np.int64)
-        roots, bases = [], {}
-        for handle, t in enumerate(self.values):
+        where = np.empty(self.size, dtype=np.int64)
+        roots, columns, bases = [], [], {}
+        for t in self.values:
+            handle = self.handle_of[id(t)]
             view = _flat_view(t)
             if view is None:
-                roots.append(handle)
-            else:
-                base, offset = view
-                bases.setdefault(id(base), (base, []))[1].append((handle, offset))
+                (columns if t.dim() else roots).append((handle, t))
+                continue
+            base, offset = view
+            # a base's 0-d views, then its columns (k handles and offsets each)
+            _, views, cols = bases.setdefault(id(base), (base, ([], []), ([], [])))
+            part = cols if t.dim() else views
+            part[0].append(handle)
+            part[1].append(offset)
         plan, position = [], 0
         if roots:
-            plan.append(("stack", [self.values[h] for h in roots]))
-            where[roots] = np.arange(position, position + len(roots))
+            plan.append(("stack", [t for _, t in roots]))
+            where[[h for h, _ in roots]] = np.arange(position, position + len(roots))
             position += len(roots)
-        for base, members in bases.values():
-            handles = [h for h, _ in members]
-            plan.append(("gather", base, ints.add([o for _, o in members])))
-            where[handles] = np.arange(position, position + len(members))
-            position += len(members)
+        for handles, t in columns:
+            plan.append(("column", t))
+            where[handles] = np.arange(position, position + len(handles))
+            position += len(handles)
+        for base, views, cols in bases.values():
+            handles, offsets = (np.concatenate([np.asarray(v, dtype=np.int64)] + c)
+                                for v, c in zip(views, cols))
+            plan.append(("gather", base, ints.add(offsets)))
+            where[handles] = np.arange(position, position + len(handles))
+            position += len(handles)
         return where, plan
 
     @staticmethod
@@ -182,6 +226,8 @@ class _Table:
         for part in plan:
             if part[0] == "stack":
                 parts.append(torch.stack([t.to(dtype=dtype, device=device) for t in part[1]]))
+            elif part[0] == "column":
+                parts.append(part[1].to(dtype=dtype, device=device))
             else:
                 _, base, handle = part
                 index = _Uploads.view(int_flat, handle)
@@ -201,46 +247,76 @@ def compose(chains, prims=()):
     ``chains``: ``(m0, factors)`` per object, ``m0`` a host (4, 4) matrix
     and ``factors`` a sequence of :class:`Factor`; ``prims``: ``(row,
     entries)`` per primitive, ``row`` its host (6,) values and ``entries``
-    ``(column, traced 0-d tensor)`` pairs.  The work runs at the first
-    traced value's dtype and device, as the eager product did.  Returns
-    ``(worlds (len(chains), 4, 4), rows (len(prims), 6))``, either None
-    when empty.
+    ``(column, traced 0-d tensor)`` pairs.  A stacked chain (``m0`` (k, 4,
+    4), constant, entries and rotation factors) gives k rows, and a stacked
+    primitive (``row`` (k, 6), each traced value a column or a shared 0-d
+    tensor) k rows.  The work runs at the first traced value's dtype and
+    device, as the eager product did.  Returns ``(worlds (rows of chains,
+    4, 4), rows (rows of prims, 6))``, either None when empty.
     """
     table, matrices = _Table(), _Table()
     floats, ints = _Uploads(np.float64), _Uploads(np.int64)
 
+    # chain i's rows start at first[i]; a stacked chain is a group of its own
+    sizes = [len(m0) if np.ndim(m0) == 3 else 1 for m0, _ in chains]
+    first = np.cumsum([0] + sizes)
     groups = {}
-    for index, (_, factors) in enumerate(chains):
-        groups.setdefault(tuple(f.key for f in factors), []).append(index)
+    for index, (m0, factors) in enumerate(chains):
+        key = tuple(f.key for f in factors)
+        groups.setdefault(key if np.ndim(m0) == 2 else (index,), []).append(index)
     plans = []
-    for signature, members in groups.items():
+    for members in groups.values():
+        signature = tuple(f.key for f in chains[members[0]][1])
+        stacked = np.ndim(chains[members[0]][0]) == 3
+        k = sizes[members[0]] if stacked else len(members)
         slots = []
         for position, key in enumerate(signature):
-            factors = [chains[i][1][position] for i in members]
-            if key[0] == "const":
-                slots.append((floats.add(np.stack([f.host for f in factors])),))
-            elif key[0] == "entries":
-                slots.append((floats.add(np.stack([f.host for f in factors])), ints.add(key[1]),
-                              [[table.add(v) for v in f.values] for f in factors]))
-            elif key[0] == "rot":
-                slots.append((floats.add(np.broadcast_to(IDENTITY, (len(members), 4, 4))),
-                              ints.add(_rotation_flat(key[1], key[2])),
-                              [[table.add(f.values[0])] for f in factors]))
+            if stacked:
+                factor = chains[members[0]][1][position]
+                hosts = None if factor.host is None else np.broadcast_to(factor.host, (k, 4, 4))
+                if key[0] == "mat":
+                    raise TypeError("a stacked chain takes no traced matrix factor")
+                handles = [table.add_members(v, k) for v in factor.values]
+                handles = np.stack(handles, axis=1) if handles else None
             else:
-                slots.append((ints.add([matrices.add(f.values[0]) for f in factors]),))
-        m0 = floats.add(np.stack([chains[i][0] for i in members]))
-        plans.append((signature, members, m0, slots))
+                factors = [chains[i][1][position] for i in members]
+                if key[0] == "mat":
+                    slots.append((ints.add([matrices.add(f.values[0]) for f in factors]),))
+                    continue
+                hosts = None if key[0] == "rot" else np.stack([f.host for f in factors])
+                handles = [[table.add(v) for v in f.values] for f in factors]
+            if key[0] == "const":
+                slots.append((floats.add(hosts),))
+            elif key[0] == "entries":
+                slots.append((floats.add(hosts), ints.add(key[1]), handles))
+            else:
+                slots.append((floats.add(np.broadcast_to(IDENTITY, (k, 4, 4))),
+                              ints.add(_rotation_flat(key[1], key[2])), handles))
+        if stacked:
+            m0 = floats.add(chains[members[0]][0])
+            rows = np.arange(first[members[0]], first[members[0] + 1])
+        else:
+            m0 = floats.add(np.stack([chains[i][0] for i in members]))
+            rows = first[members]
+        plans.append((signature, rows, m0, slots))
     prim_plan = None
     if prims:
-        flat, handles = [], []
-        for row, (_, entries) in enumerate(prims):
+        flat, handles, start = [], [], 0
+        for row, entries in prims:
+            k = len(row) if np.ndim(row) == 2 else 0
             for column, value in entries:
-                flat.append(6 * row + column)
-                handles.append(table.add(value))
-        prim_plan = [floats.add(np.stack([r for r, _ in prims])), ints.add(flat), handles]
+                if k:
+                    flat.append(6 * (start + np.arange(k)) + column)
+                    handles.append(table.add_members(value, k))
+                else:
+                    flat.append(6 * start + column)
+                    handles.append(table.add(value))
+            start += max(k, 1)
+        base = np.concatenate([np.reshape(r, (-1, 6)) for r, _ in prims])
+        prim_plan = [floats.add(base), ints.add(np.hstack(flat)), np.hstack(handles)]
 
-    first = (table.values or matrices.values)[0]
-    dtype, device = first.dtype, first.device
+    lead = (table.values or matrices.values)[0]
+    dtype, device = lead.dtype, lead.device
     where, table_plan = table.layout(ints)
 
     def positions(handles):
@@ -253,7 +329,7 @@ def compose(chains, prims=()):
     if prim_plan is not None:
         prim_plan[2] = positions(prim_plan[2])
     # the groups' rows come out in group order: back to chain order
-    order = np.concatenate([members for _, members, _, _ in plans]) if plans else []
+    order = np.concatenate([rows for _, rows, _, _ in plans]) if plans else []
     reorder = None
     if np.any(np.diff(order) < 0):
         inverse = np.empty(len(order), dtype=np.int64)
@@ -274,9 +350,9 @@ def compose(chains, prims=()):
             if matrices.values else None)
 
     outputs = []
-    for signature, members, m0, slots in plans:
+    for signature, rows, m0, slots in plans:
         world = floats_at(m0)
-        k = len(members)
+        k = len(rows)
         for key, slot in zip(signature, slots):
             if key[0] == "const":
                 factor = floats_at(slot[0])

@@ -9,6 +9,11 @@ transforms, ``prim`` (S, 6) packed primitive parameters and ``glass``
 A scene rebuilt from tensors that require grad (scene/_backend.py) gets
 params whose graph reaches those tensors; its ``SceneSpec`` is the same as
 a plain build's.
+
+A run of consecutive lenslet handles of one grid (scene/lenslets.py)
+compiles in one batched pass; every other component, a built and changed
+lenslet included, leaf by leaf.  Counters: ``compile_scene.grid_leaves``
+and ``.object_leaves``, the leaves compiled each way.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from pyrayt_tpu_torch.core.csg import Operation
 from pyrayt_tpu_torch.core.intervals import LEAF
 from pyrayt_tpu_torch.scene._factors import compose
 from pyrayt_tpu_torch.scene.csg import CSGSurface
+from pyrayt_tpu_torch.scene.lenslets import Lenslet
 from pyrayt_tpu_torch.scene.objects import ObjectGroup, TracerSurface
 
 __all__ = ["SceneSpec", "CompiledScene", "compile_scene", "LEAF", "OP_BY_NAME"]
@@ -87,10 +93,10 @@ class CompiledScene:
 
 
 def _stack(entries, empty_shape, dtype, device) -> torch.Tensor:
-    """Stack per-leaf (or per-material) rows into one ``dtype`` tensor on
-    ``device``.  Plain rows stack on NumPy; when any row is a tensor (a
-    differentiable rebuild) they stack with ``torch.stack``, so the result's
-    graph reaches the traced values."""
+    """Stack per-material rows into one ``dtype`` tensor on ``device``.
+    Plain rows stack on NumPy; when any row is a tensor (a differentiable
+    rebuild) they stack with ``torch.stack``, so the result's graph reaches
+    the traced values."""
     if not entries:
         return torch.zeros(empty_shape, dtype=dtype, device=device)
     if any(isinstance(e, torch.Tensor) for e in entries):
@@ -100,29 +106,33 @@ def _stack(entries, empty_shape, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.stack(entries), dtype=dtype, device=device)
 
 
-def _leaf_tables(chains, prims, dtype, device):
+def _leaf_tables(chains, prims, n_leaves, dtype, device):
     """``world`` (S, 4, 4) and ``prim`` (S, 6) from each leaf's transform
-    chain and primitive entries (objects.py): the plain rows stack on NumPy
-    as before, and the traced leaves come from one batched composition
+    chain and primitive entries (objects.py), given as ``(slots, chain)``
+    and ``(slots, prim)`` pairs: one slot and one leaf's, or an index array
+    and a grid's stacked leaves (lenslets.py).  The plain rows fill NumPy
+    tables, and the traced leaves come from one batched composition
     (scene/_factors.py), placed in slot order with one index op each."""
-    world = _stack([m0 for m0, factors in chains], (0, 4, 4), dtype, device)
-    prim = _stack([row for row, _ in prims], (0, prim_mod.PARAM_WIDTH), dtype, device)
-    traced_world = [slot for slot, (_, factors) in enumerate(chains) if factors]
-    traced_prim = [slot for slot, (_, entries) in enumerate(prims) if entries]
+    world = np.empty((n_leaves, 4, 4))
+    prim = np.empty((n_leaves, prim_mod.PARAM_WIDTH))
+    for slots, (m0, _) in chains:
+        world[slots] = m0
+    for slots, (row, _) in prims:
+        prim[slots] = row
+    world = torch.as_tensor(world, dtype=dtype, device=device)
+    prim = torch.as_tensor(prim, dtype=dtype, device=device)
+    traced_world = [(slots, chain) for slots, chain in chains if chain[1]]
+    traced_prim = [(slots, entry) for slots, entry in prims if entry[1]]
     if not traced_world and not traced_prim:
         return world, prim
-    rows_world, rows_prim = compose(
-        [chains[slot] for slot in traced_world], [prims[slot] for slot in traced_prim]
-    )
-    slots = torch.as_tensor(np.asarray(traced_world + traced_prim, dtype=np.int64), device=device)
+    rows_world, rows_prim = compose([c for _, c in traced_world], [p for _, p in traced_prim])
+    slots = [s for s, _ in traced_world + traced_prim]
+    slots = torch.as_tensor(np.hstack(slots).astype(np.int64), device=device)
+    n_world = sum(np.size(s) for s, _ in traced_world)
     if traced_world:
-        world = world.index_copy(
-            0, slots[: len(traced_world)], rows_world.to(dtype=dtype, device=device)
-        )
+        world = world.index_copy(0, slots[:n_world], rows_world.to(dtype=dtype, device=device))
     if traced_prim:
-        prim = prim.index_copy(
-            0, slots[len(traced_world):], rows_prim.to(dtype=dtype, device=device)
-        )
+        prim = prim.index_copy(0, slots[n_world:], rows_prim.to(dtype=dtype, device=device))
     return world, prim
 
 
@@ -162,8 +172,8 @@ def _compile(components, require_materials, device, dtype) -> CompiledScene:
     leaf_ids = []
     leaf_normal_scale = []
     leaf_mat_slot = []
-    worlds = []
-    prims = []
+    worlds = []  # (slots, chain) pairs
+    prims = []  # (slots, prim) pairs
 
     materials = []
     mat_slot_of = {}
@@ -196,12 +206,47 @@ def _compile(components, require_materials, device, dtype) -> CompiledScene:
             leaf_ids.append(obj.get_id())
             leaf_normal_scale.append(obj._normal_scale)
             leaf_mat_slot.append(_material_slot(obj.material))
-            worlds.append(obj._world_chain())
-            prims.append(obj._prim_entries())
+            worlds.append((slot, obj._world_chain()))
+            prims.append((slot, obj._prim_entries()))
+            compile_scene.object_leaves += 1
             return (LEAF, slot)
+        if isinstance(obj, Lenslet):
+            return _walk(obj.materialise())
         raise TypeError(f"cannot compile component of type {type(obj)!r}")
 
-    trees = tuple(_walk(comp) for comp in components)
+    def _grid(grid, indices):
+        """A run of one grid's lenslets in one pass (lenslets.py): per
+        lenslet its sphere's slot, then its aperture's, and the tree
+        ``intersect(sphere, aperture)``."""
+        k = len(indices)
+        (s_type, s_ids, s_chain, s_prim), (c_type, c_ids, c_chain, c_prim) = grid.leaves(indices)
+        slots = np.arange(len(leaf_types), len(leaf_types) + 2 * k, 2)
+        worlds.extend(((slots, s_chain), (slots + 1, c_chain)))
+        prims.extend(((slots, s_prim), (slots + 1, c_prim)))
+        leaf_types.extend([s_type, c_type] * k)
+        leaf_ids.extend(np.stack((s_ids, c_ids), axis=1).ravel().tolist())
+        leaf_normal_scale.extend([1] * (2 * k))
+        leaf_mat_slot.extend([_material_slot(grid.material)] * (2 * k))
+        compile_scene.grid_leaves += 2 * k
+        op = _OP_NAMES[Operation.INTERSECT]
+        return [(op, (LEAF, s), (LEAF, s + 1)) for s in slots.tolist()]
+
+    trees = []
+    position = 0
+    while position < len(components):
+        comp = components[position]
+        if type(comp) is not Lenslet or not comp.on_grid():
+            trees.append(_walk(comp))
+            position += 1
+            continue
+        end = position + 1  # the run: consecutive handles of this grid
+        while (end < len(components) and type(components[end]) is Lenslet
+               and components[end].grid is comp.grid and components[end].on_grid()):
+            end += 1
+        run = components[position:end]
+        trees.extend(_grid(comp.grid, np.fromiter((c.index for c in run), np.int64, len(run))))
+        position = end
+    trees = tuple(trees)
 
     spec = SceneSpec(
         leaf_types=tuple(leaf_types),
@@ -213,10 +258,14 @@ def _compile(components, require_materials, device, dtype) -> CompiledScene:
         trees=trees,
     )
     glass_rows = [m.glass_coeffs() for m in materials]
-    world, prim = _leaf_tables(worlds, prims, dtype, device)
+    world, prim = _leaf_tables(worlds, prims, len(leaf_types), dtype, device)
     params = {
         "world": world,
         "prim": prim,
         "glass": _stack(glass_rows, (0, matl.N_GLASS_COEFFS), dtype, device),
     }
     return CompiledScene(spec=spec, params=params, materials=tuple(materials))
+
+
+compile_scene.grid_leaves = 0
+compile_scene.object_leaves = 0

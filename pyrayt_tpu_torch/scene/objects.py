@@ -76,6 +76,15 @@ def fresh_ids(start: int = 0):
         CountedObject._ids = saved
 
 
+def reserve_ids(count: int) -> int:
+    """Draw ``count`` consecutive ids at once, as ``count`` new objects
+    would; returns the first."""
+    first = next(CountedObject._ids)
+    if count > 1:
+        next(itertools.islice(CountedObject._ids, count - 2, None))
+    return first
+
+
 def _copy(matrix):
     """A copy that keeps a tensor's graph (``copy.copy`` would cut it)."""
     return matrix.clone() if isinstance(matrix, torch.Tensor) else copy.copy(matrix)
@@ -85,6 +94,7 @@ _OBJ_ORIGIN = np.array([0.0, 0.0, 0.0, 1.0])
 _OBJ_DIRECTION = np.array([0.0, 0.0, 1.0, 0.0])
 _MOVE_ENTRIES = (3, 7, 11)  # flat positions of a move's x, y, z
 _SCALE_ENTRIES = (0, 5, 10)
+ROTATION_PLANES = {"x": (1, 2), "y": (2, 0), "z": (0, 1)}  # rotate_<axis>'s (i, j)
 
 
 class WorldObject(CountedObject):
@@ -269,11 +279,13 @@ class WorldObject(CountedObject):
     def scale_all(self, scale_val):
         return self.scale(scale_val, scale_val, scale_val)
 
-    def _rotate(self, axes, angle, units):
-        angle, scale = self._angle(angle, units)
+    @classmethod
+    def _rotation(cls, axes, angle, units):
+        """The rotation in the ``axes`` plane: a host matrix, or a traced
+        factor when the angle is traced."""
+        angle, scale = cls._angle(angle, units)
         if is_traced(angle):
-            self._append_world_transform(rotation_factor(axes, angle, scale))
-            return self
+            return rotation_factor(axes, angle, scale)
         sin_a, cos_a = math.sin(angle * scale), math.cos(angle * scale)
         (i, j) = axes
         tx = IDENTITY.copy()
@@ -281,17 +293,20 @@ class WorldObject(CountedObject):
         tx[j, j] = cos_a
         tx[i, j] = -sin_a
         tx[j, i] = sin_a
-        self._append_world_transform(tx)
+        return tx
+
+    def _rotate(self, axes, angle, units):
+        self._append_world_transform(self._rotation(axes, angle, units))
         return self
 
     def rotate_x(self, angle, units="deg"):
-        return self._rotate((1, 2), angle, units)
+        return self._rotate(ROTATION_PLANES["x"], angle, units)
 
     def rotate_y(self, angle, units="deg"):
-        return self._rotate((2, 0), angle, units)
+        return self._rotate(ROTATION_PLANES["y"], angle, units)
 
     def rotate_z(self, angle, units="deg"):
-        return self._rotate((0, 1), angle, units)
+        return self._rotate(ROTATION_PLANES["z"], angle, units)
 
     def transform(self, transform_matrix):
         if isinstance(transform_matrix, np.ndarray) and transform_matrix.dtype == np.float64:

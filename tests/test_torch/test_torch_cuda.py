@@ -687,6 +687,61 @@ def test_wide_objective_runs_k2_and_k8(cuda):
     assert float(grads[0].abs().max()) > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lenslet_grid_design_steps_equal_the_objects(cuda, dtype):
+    """Three Adam steps of the per-lenslet objective (radii and the
+    detector free, the mla16 cell's lenslet blur: K2, then the staged K5-K7)
+    on a 5x5 array: the grid's batched compile and the per-object compile
+    of the same lenslets' objects give bit-identical losses, gradients and
+    parameters."""
+    from benchmark.configs import mla16_port
+
+    from pyrayt_tpu_torch.analysis import build_objective
+    from pyrayt_tpu_torch.scene.compile import compile_scene
+
+    rays = interop.rays_from_numpy(*wide_rays("mla5"), device=cuda, dtype=dtype)
+
+    def build_fn(per_object):
+        def build(theta):
+            lenslets = TORCH_NS.comp.microlens_array(theta["radii"], 0.25, 5, 5, 1.0)
+            if per_object:
+                lenslets = [lens.materialise() for lens in lenslets]
+            return lenslets + [TORCH_NS.comp.baffle((10.0, 10.0)).move_x(theta["det_x"])]
+        return build
+
+    radii0 = 2.0 + 0.1 * np.random.default_rng(3).standard_normal(25)
+    with TORCH_NS.fresh_ids():
+        sid = float(build_fn(False)({"radii": radii0, "det_x": 4.2})[-1].get_id())
+    loss = mla16_port.loss({"n": 5, "pitch": 1.0}, sid)
+    counters = (ft.fused_trace_wide, fg.staged_tail, fg.staged_group, fg.staged_singles)
+    runs = []
+    for per_object in (False, True):
+        objective = build_objective(build_fn(per_object), rays, loss,
+                                    TraceConfig(generation_limit=4))
+        theta = {"radii": torch.tensor(radii0, dtype=dtype, device=cuda, requires_grad=True),
+                 "det_x": torch.tensor(4.2, dtype=dtype, device=cuda, requires_grad=True)}
+        opt = torch.optim.Adam(list(theta.values()), lr=2e-2)
+        launches = [c.launches for c in counters]
+        leaves = compile_scene.grid_leaves, compile_scene.object_leaves
+        steps = []
+        for _ in range(3):
+            opt.zero_grad()
+            value = objective(theta)
+            value.backward()
+            steps.append([value.detach().clone()] + [p.grad.clone() for p in theta.values()])
+            opt.step()
+        steps.append([p.detach().clone() for p in theta.values()])
+        assert all(c.launches > k for c, k in zip(counters, launches))
+        assert (compile_scene.grid_leaves - leaves[0], compile_scene.object_leaves - leaves[1]) \
+            == ((150, 3) if not per_object else (0, 153))
+        runs.append(steps)
+    for grid_step, object_step in zip(*runs):
+        for a, b in zip(grid_step, object_step):
+            assert torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+    assert float(runs[0][0][1].abs().max()) > 0
+
+
 # ---------------------------------------------------------------------------
 # the table reduce of K6, K7 and K8 alone, and inside them
 # ---------------------------------------------------------------------------
