@@ -125,8 +125,10 @@ def supports_fused_wide(spec: SceneSpec) -> bool:
     row counters cap a group's or K8's reduce at 51,200 leaves, and its
     int32 indices at 2**31 - 1 entries.  The gradient's dispatch
     (``ops.fused_grad.pick_fused_grad``) sends a scene past those limits to
-    the plain engine; the trace keeps K2.  Scenes above 513 leaves were not
-    measured.
+    the plain engine; the trace keeps K2.  The largest scene measured is a
+    32 x 32 microlens array: 2,049 leaves, one group of 1,024 trees in 64
+    chunks, whose design step at 2^22 rays spent 4.0 device ms in K2 and
+    5.2 in the staged backward and its reduce on an H100 (PERF.md).
     """
     if not (
         spec.n_leaves > engine.MAX_NARROW_LEAVES
@@ -390,6 +392,20 @@ def _chunk_union(lo3, hi3, nc):
     return torch.cat((s_min.min(dim=1).values, s_max.max(dim=1).values), dim=1)
 
 
+@lru_cache(maxsize=64)
+def _slot_tensors(spec: SceneSpec, device: torch.device):
+    """:func:`wide_tables`' slot vector (int32) and each group's slot matrix
+    ``(T, L)`` (int64) on ``device``, copied there once per spec and
+    device.  Shared by every call: callers must not modify them."""
+    _, groups, offsets, slots_flat, _, _ = wide_tables(spec)
+    flat = torch.as_tensor(slots_flat, device=device)
+    per_group = tuple(
+        flat[off:off + len(slot_matrix) * len(types_pos)].to(torch.long)
+        .reshape(len(slot_matrix), len(types_pos))
+        for (_, types_pos, slot_matrix), off in zip(groups, offsets))
+    return flat, per_group
+
+
 def _wide_box_pass(spec: SceneSpec, params, dtype):
     """One pass over the groups: ``(slots, aabb, tight)`` where ``slots``
     and ``aabb`` are :func:`wide_runtime_tables`' and ``tight`` holds the
@@ -441,52 +457,59 @@ def _wide_box_pass(spec: SceneSpec, params, dtype):
     local slopes, ``_CULL_SLOPE`` plus the rounding's, ``A`` the leaf's
     world rotation and scale).  The kernels test a ray against each box
     grown by ``slope * t`` at parameter t > 0, which the strays never leave.
+
+    Nothing in the pass waits for the device: the slot tables come from
+    :func:`_slot_tensors`' copies, and the sort axis is picked on the
+    device.  Under a profiler the pass is the span ``ops.cull``.
     """
-    _, groups, offsets, slots_flat, chunk_offsets, n_chunks = wide_tables(spec)
-    device = params["world"].device
-    slots_out = torch.as_tensor(slots_flat, device=device).clone()
-    aabb = torch.zeros((max(sum(n_chunks), 1), 6), dtype=dtype, device=device)
-    world = params["world"].detach().to(dtype)
-    prims = params["prim"].detach().to(dtype)
-    rounding = _ROUNDING_SLOPE * torch.finfo(dtype).eps ** 0.5
-    tight_out = []
-    for gi, (template, types_pos, slot_matrix) in enumerate(groups):
-        nc = n_chunks[gi]
-        t_count, l_count = len(slot_matrix), len(types_pos)
-        slots_t = torch.as_tensor(slot_matrix, dtype=torch.long, device=device)
-        kw = dict(dtype=dtype, device=device)
-        mins = torch.full((t_count, 3), INF, **kw)
-        maxs = torch.full((t_count, 3), -INF, **kw)
-        t_min = torch.full((t_count, 3), -INF, **kw)  # the tight box, folded by opcode
-        t_max = torch.full((t_count, 3), INF, **kw)
-        slope = torch.zeros((3,), **kw)
-        ops = [op for op, _ in _interval_chain(template)]
-        for j in range(l_count):
-            sj = slots_t[:, j]
-            lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
-            mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
-            k_local = _CULL_SLOPE.get(types_pos[j])
-            if ops[j] == IV_SUB or k_local is None:
-                continue  # IV_SUB keeps the box; an unbounded leaf tightens nothing
-            t_min, t_max = torch.maximum(t_min, lo), torch.minimum(t_max, hi)
-            a = world[sj, :3, :3].abs()
-            k = [k_local[ax] + rounding for ax in range(3)]
-            k_world = torch.stack([a[:, i, 0] * k[0] + a[:, i, 1] * k[1] + a[:, i, 2] * k[2]
-                                   for i in range(3)], dim=1)
-            slope = torch.maximum(slope, k_world.max(dim=0).values)
-        if nc:  # an unchunked group keeps its trees in index order
-            centers = (mins + maxs) / 2
-            spread = centers.max(dim=0).values - centers.min(dim=0).values
-            perm = torch.argsort(centers[:, int(torch.argmax(spread))], stable=True)
-            off = offsets[gi]
-            slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
-            start = chunk_offsets[gi]
-            aabb[start:start + nc] = _chunk_union(mins[perm], maxs[perm], nc)
-        else:
-            perm = torch.arange(t_count, device=device)
-        tree_box = torch.cat((t_min, t_max), dim=1)[perm]
-        tight_out.append((tree_box, _chunk_union(t_min[perm], t_max[perm], nc), slope))
-    return slots_out, aabb, tuple(tight_out)
+    with tracing.span("ops.cull"):
+        _, groups, offsets, _, chunk_offsets, n_chunks = wide_tables(spec)
+        device = params["world"].device
+        slots_flat, group_slots = _slot_tensors(spec, device)
+        slots_out = slots_flat.clone()
+        aabb = torch.zeros((max(sum(n_chunks), 1), 6), dtype=dtype, device=device)
+        world = params["world"].detach().to(dtype)
+        prims = params["prim"].detach().to(dtype)
+        rounding = _ROUNDING_SLOPE * torch.finfo(dtype).eps ** 0.5
+        tight_out = []
+        for gi, (template, types_pos, slot_matrix) in enumerate(groups):
+            nc = n_chunks[gi]
+            t_count, l_count = len(slot_matrix), len(types_pos)
+            slots_t = group_slots[gi]
+            kw = dict(dtype=dtype, device=device)
+            mins = torch.full((t_count, 3), INF, **kw)
+            maxs = torch.full((t_count, 3), -INF, **kw)
+            t_min = torch.full((t_count, 3), -INF, **kw)  # the tight box, folded by opcode
+            t_max = torch.full((t_count, 3), INF, **kw)
+            slope = torch.zeros((3,), **kw)
+            ops = [op for op, _ in _interval_chain(template)]
+            for j in range(l_count):
+                sj = slots_t[:, j]
+                lo, hi = _leaf_world_aabb(types_pos[j], prims[sj], world[sj])
+                mins, maxs = torch.minimum(mins, lo), torch.maximum(maxs, hi)
+                k_local = _CULL_SLOPE.get(types_pos[j])
+                if ops[j] == IV_SUB or k_local is None:
+                    continue  # IV_SUB keeps the box; an unbounded leaf tightens nothing
+                t_min, t_max = torch.maximum(t_min, lo), torch.minimum(t_max, hi)
+                a = world[sj, :3, :3].abs()
+                k = [k_local[ax] + rounding for ax in range(3)]
+                k_world = torch.stack([a[:, i, 0] * k[0] + a[:, i, 1] * k[1] + a[:, i, 2] * k[2]
+                                       for i in range(3)], dim=1)
+                slope = torch.maximum(slope, k_world.max(dim=0).values)
+            if nc:  # an unchunked group keeps its trees in index order
+                centers = (mins + maxs) / 2
+                spread = centers.max(dim=0).values - centers.min(dim=0).values
+                axis = torch.argmax(spread).reshape(1)  # picked on the device, not read back
+                perm = torch.argsort(centers.index_select(1, axis)[:, 0], stable=True)
+                off = offsets[gi]
+                slots_out[off:off + t_count * l_count] = slots_t[perm].reshape(-1).to(torch.int32)
+                start = chunk_offsets[gi]
+                aabb[start:start + nc] = _chunk_union(mins[perm], maxs[perm], nc)
+            else:
+                perm = torch.arange(t_count, device=device)
+            tree_box = torch.cat((t_min, t_max), dim=1)[perm]
+            tight_out.append((tree_box, _chunk_union(t_min[perm], t_max[perm], nc), slope))
+        return slots_out, aabb, tuple(tight_out)
 
 
 def wide_runtime_tables(spec: SceneSpec, params, dtype):
@@ -519,14 +542,24 @@ def wide_cull_tables(spec: SceneSpec, params, dtype):
     boxes of :func:`_wide_box_pass`, computed in the same pass.  Group g's
     rows start at ``cull_offsets(spec)[g]`` (the wide program's group
     field 6): its slope ``[s_x, s_y, s_z, 0, 0, 0]``, its chunk boxes, its
-    tree boxes, each box padded as ``_box_hit`` pads (64 ulps)."""
+    tree boxes, each box padded as ``_box_hit`` pads (64 ulps).
+
+    Counters: ``wide_cull_tables.trees`` and ``.chunks``, the group trees
+    and the chunk boxes whose boxes the calls built (1,024 and 64 a call
+    for a 32 x 32 microlens array, 256 and 16 for a 16 x 16 one)."""
     with tracing.span("ops.tables"):
         slots, aabb, tight = _wide_box_pass(spec, params, dtype)
         rows = []
         for tree_box, chunk_box, slope in tight:
             rows += [torch.cat((slope, slope.new_zeros(3)))[None], _pad_box(chunk_box),
                      _pad_box(tree_box)]
+            wide_cull_tables.trees += tree_box.shape[0]
+            wide_cull_tables.chunks += chunk_box.shape[0]
         return slots, aabb, torch.cat(rows).contiguous()
+
+
+wide_cull_tables.trees = 0
+wide_cull_tables.chunks = 0
 
 
 @lru_cache(maxsize=64)

@@ -742,6 +742,95 @@ def test_lenslet_grid_design_steps_equal_the_objects(cuda, dtype):
     assert float(runs[0][0][1].abs().max()) > 0
 
 
+def _mla32_value_and_grad(cuda, rays, dtype, use_fused, loss):
+    """The ``mla32`` design objective's loss and gradient over its 1,025
+    parameters at the seed's detuned radii, as the benchmark builds it."""
+    from benchmark.configs import mla32_port, mla32_reference
+    from benchmark.harness import manifest
+
+    from pyrayt_tpu_torch.analysis import build_objective
+
+    cfg = manifest.config_numbers("mla32")
+    drawn = mla32_reference.theta(cfg, manifest.traffic("design30_2p22"),
+                                  np.random.default_rng(2**31 + 3))
+    theta = {k: torch.tensor(v, dtype=dtype, device=cuda, requires_grad=True)
+             for k, v in drawn.items()}
+    objective = build_objective(lambda th: mla32_port.components(cfg, th), rays, loss,
+                                TraceConfig(generation_limit=4, use_fused=use_fused))
+    value = objective(theta)
+    return [value.detach()] + list(torch.autograd.grad(value, list(theta.values())))
+
+
+@pytest.mark.cuda
+def test_mla32_array_through_k2_and_the_staged_backward(cuda):
+    """The benchmark's 32x32 array (2,049 leaves, 1,025 parameters) at 2^18
+    rays: the loss and gradient through K2 and the staged K5-K7 against the
+    plain engine at float64, at float32 under a share bound (FMA
+    contraction), and two float32 launches bit-identical.  The plain engine
+    holds a (trees, rays) tensor per operation for autograd (about 2.7 GB a
+    1,024 rays here), so it runs in blocks of rays: the lenslet blur is a
+    masked mean, each block's loss weighted by its share of the detector's
+    hits.  Float32 is held to the plain engine in float32: against float64
+    it reads 4.8e-5 of the loss apart on the CPU's plain engine as on the
+    card, 4 of these rays grazing a lenslet's rim (radius within float32
+    rounding of pitch / 2) and missing the lens in one precision only."""
+    from benchmark.configs import mla32_port
+    from benchmark.harness import manifest
+
+    from pyrayt_tpu_torch.analysis.metrics import surface_mask
+    from pyrayt_tpu_torch.scene.objects import fresh_ids
+
+    cfg = manifest.config_numbers("mla32")
+    n_rays, block = 1 << 18, 1 << 12
+    with fresh_ids():
+        sid = mla32_port.components(cfg, {"radii": np.full(1024, 2.0), "det_x": 4.0})[-1] \
+            .get_id()
+    blur = mla32_port.loss(cfg, sid)
+
+    def plain(rays, dtype):
+        total, hits = None, 0
+        for start in range(0, n_rays, block):
+            part = type(rays)(**{
+                f: getattr(rays, f)[..., start:start + block]
+                for f in ("positions", "directions", "generation", "intensity", "wavelength",
+                          "index", "id")})
+            counted = []
+
+            def loss(res):
+                counted.append(int(surface_mask(res, sid).sum()))
+                return blur(res)
+
+            out = _mla32_value_and_grad(cuda, part, dtype, False, loss)
+            total = ([o.double() * counted[0] for o in out] if total is None
+                     else [t + o.double() * counted[0] for t, o in zip(total, out)])
+            hits += counted[0]
+        assert hits > n_rays // 2
+        return [t / hits for t in total]
+
+    counters = (ft.fused_trace_wide, fg.staged_tail, fg.staged_group, fg.staged_singles,
+                fg.fused_bwd_wide)
+    rays64 = mla32_port.rays(cfg, n_rays, cuda, torch.float64)
+    before = [c.launches for c in counters]
+    k64 = _mla32_value_and_grad(cuda, rays64, torch.float64, None, blur)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched[0] == 1 and all(k > 0 for k in launched[1:4]) and launched[4] == 0, launched
+    p64 = plain(rays64, torch.float64)
+    assert float(p64[1].abs().min()) > 0
+    for k, p in zip(k64, p64):
+        torch.testing.assert_close(k, p, **TOL64)
+    rays32 = mla32_port.rays(cfg, n_rays, cuda, torch.float32)
+    k32 = _mla32_value_and_grad(cuda, rays32, torch.float32, None, blur)
+    again = _mla32_value_and_grad(cuda, rays32, torch.float32, None, blur)
+    for a, b in zip(k32, again):
+        assert torch.equal(a, b)
+    p32 = plain(rays32, torch.float32)
+    # one ray whose path FMA rounding flips moves the loss by about 1.2e-5
+    assert abs(float(k32[0]) - float(p32[0])) <= 1e-4 * float(p32[0])
+    agree = (k32[1].double() - p32[1]).abs() <= REL32 * float(p32[1].abs().max())
+    assert agree.float().mean() >= MIN_AGREE32
+    assert abs(float(k32[2]) - float(p32[2])) <= REL32 * abs(float(p32[2]))
+
+
 # ---------------------------------------------------------------------------
 # the table reduce of K6, K7 and K8 alone, and inside them
 # ---------------------------------------------------------------------------
